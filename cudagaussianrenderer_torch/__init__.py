@@ -1,0 +1,45 @@
+"""cudagaussianrenderer_torch — the Gaussian-splat renderer on PyTorch and CUDA.
+
+The port of ``cudagaussianrenderer_tpu`` to one NVIDIA Hopper card.  The
+stage functions keep the JAX package's names, planar layouts and outputs;
+its four Pallas kernels of the default frame become CUDA C++ kernels under
+``csrc/`` (built with nvcc at first use, see utils/cuda_build.py):
+
+  K1 csrc/edges.cu       ops.ranges.tile_edges        tile ranges
+  K2 csrc/interleave.cu  ops.expand.interleave_rows   emit row array
+  K3 csrc/emit.cu        ops.expand.emit_slots        pair-list emission
+  K4 csrc/raster.cu      ops.raster.rasterize_tiles   tile blending
+
+Each wrapper runs its kernel for CUDA tensors and its plain PyTorch
+version for CPU tensors.  Entry points default to the card; pass
+``device="cpu"`` to run on the CPU.
+
+Quick start::
+
+    from cudagaussianrenderer_torch import Camera, RenderConfig, Renderer, random_scene
+    scene = random_scene(100_000, seed=0)
+    cam = Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max)
+    image = Renderer(scene, RenderConfig()).render(cam)  # [1024,1024,4] u8
+"""
+
+from .config import RenderConfig
+from .models.camera import Camera, CameraController, InputState, orbit_cameras
+from .models.scene import GaussianScene, random_scene, scene_from_arrays, scene_from_numpy
+from .render import Renderer, render_frame, render_frame_multipass
+
+__all__ = [
+    "Camera",
+    "CameraController",
+    "GaussianScene",
+    "InputState",
+    "RenderConfig",
+    "Renderer",
+    "orbit_cameras",
+    "random_scene",
+    "render_frame",
+    "render_frame_multipass",
+    "scene_from_arrays",
+    "scene_from_numpy",
+]
+
+__version__ = "0.1.0"

@@ -1,0 +1,145 @@
+"""The port's four CUDA kernels against their plain PyTorch versions, on
+the card.  The kernels have no CPU mode, so every test here needs a CUDA
+device and skips without one.
+
+This file imports neither jax nor the JAX package, so it also runs on a
+machine that has only PyTorch and the CUDA toolkit:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import cudagaussianrenderer_torch as pt
+from cudagaussianrenderer_torch.golden import golden_render, scene_to_numpy
+from cudagaussianrenderer_torch.ops import expand, ranges, raster
+from cudagaussianrenderer_torch.ops.binning import emit_columns
+from cudagaussianrenderer_torch.ops.projection import project_splats
+from cudagaussianrenderer_torch.render import _frame_pairs, _splat_colors, camera_tensors
+
+pytestmark = pytest.mark.cuda
+
+# K4 against its plain version, after tiles_to_image: the same pairs blended
+# in the same order; nvcc may contract multiply-adds and its expf rounds
+# differently from PyTorch's.
+K4_LSB_BOUND = 4
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def bits(t):
+    return t.contiguous().view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def stage_c_inputs(dev, n, seed, cfg, scene_kw=None):
+    scene = pt.random_scene(n, seed=seed, device=dev, **(scene_kw or {})).pad_to_multiple(256)
+    cam = pt.Camera(aspect=cfg.aspect).framed(scene.bounds_min, scene.bounds_max)
+    c = camera_tensors(cam.camera_data(), dev)
+    clip = project_splats(scene.means, scene.scales, scene.quats, c, cfg,
+                          opacities=scene.opacities)
+    cols, incl = emit_columns(clip, _splat_colors(scene, c), scene.opacities, cfg)
+    return tuple(x.contiguous() for x in cols), incl
+
+
+EMIT_CASES = [
+    ("default", dict(screen_size=128), 500, 2, None, 4096),
+    ("truncated-lex", dict(screen_size=128, depth_bits=32), 500, 2, None, 1024),
+    ("runs-off", dict(screen_size=128, center_sampled_runs=False,
+                      opacity_aware_extents=False), 500, 2, None, 8192),
+    ("huge-below", dict(screen_size=1024), 192, 9,
+     dict(min_scale=0.3, max_scale=1.6, extent=3.0), 262144),
+    ("huge-above", dict(screen_size=1024), 192, 9,
+     dict(min_scale=0.3, max_scale=1.6, extent=3.0), 524288),
+]
+
+
+@pytest.mark.parametrize("name,cfg_kw,n,seed,scene_kw,capacity", EMIT_CASES,
+                         ids=[c[0] for c in EMIT_CASES])
+def test_interleave_and_emit_match_plain(dev, name, cfg_kw, n, seed, scene_kw, capacity):
+    cfg = pt.RenderConfig(**cfg_kw)
+    cols, incl = stage_c_inputs(dev, n, seed, cfg, scene_kw)
+    before = (expand.interleave_rows.launches, expand.emit_slots.launches)
+    rows = expand.interleave_rows(incl, cols, capacity + 1)
+    torch.testing.assert_close(bits(rows), bits(expand._interleave_rows_torch(incl, cols,
+                                                                             capacity + 1)),
+                               rtol=0, atol=0)
+    outs = expand.emit_slots(rows, capacity, cfg)
+    torch.cuda.synchronize()
+    for got, want in zip(outs, expand._emit_torch(rows, capacity, cfg)):
+        assert torch.equal(got, want)
+    assert (expand.interleave_rows.launches, expand.emit_slots.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("num_probes,shift,n", [(4097, 19, 100_000), (65, 0, 777), (2, 0, 3)])
+def test_edges_match_plain(dev, num_probes, shift, n):
+    rng = np.random.default_rng(n)
+    keys = np.sort(rng.integers(0, (num_probes + 2) << shift, n, dtype=np.uint64))
+    keys = np.concatenate([keys, np.full(100, 0xFFFFFFFF, np.uint64)]).astype(np.uint32)
+    k = torch.from_numpy(keys.view(np.int32)).to(dev)
+    got = ranges.tile_edges(k, num_probes, shift)
+    assert torch.equal(got, ranges._edges_torch(k, num_probes, shift))
+
+
+RASTER_CASES = [
+    ("gaussian", dict(screen_size=128), 0),
+    ("epanechnikov-background", dict(screen_size=128, falloff="epanechnikov",
+                                     background=(1.0, 1.0, 1.0)), 0),
+    ("row-offset", dict(screen_size=128, background=(0.2, 0.4, 0.6)), 3),
+    ("chunk256-rect", dict(screen_size=192, screen_height=128, raster_chunk=256), 0),
+]
+
+
+@pytest.mark.parametrize("name,cfg_kw,row_offset", RASTER_CASES, ids=[c[0] for c in RASTER_CASES])
+def test_raster_matches_plain(dev, name, cfg_kw, row_offset):
+    cfg = pt.RenderConfig(**cfg_kw)
+    scene = pt.random_scene(500, seed=2, device=dev).pad_to_multiple(256)
+    cam = pt.Camera(aspect=cfg.aspect).framed(scene.bounds_min, scene.bounds_max)
+    _, attrs, starts, counts = _frame_pairs(scene, camera_tensors(cam.camera_data(), dev),
+                                            cfg, 8192)
+    pair_data = raster.pack_pair_data(attrs, cfg.raster_chunk)
+    rows = 2 if row_offset else cfg.tiles_y
+    sl = slice(row_offset * cfg.tiles_x, (row_offset + rows) * cfg.tiles_x)
+    args = (pair_data, starts[sl].contiguous(), counts[sl].contiguous(), cfg)
+    got = raster.rasterize_tiles(*args, num_tiles=rows * cfg.tiles_x, tile_row_offset=row_offset)
+    want = raster._raster_torch(*args, rows * cfg.tiles_x, row_offset)
+    a = raster.tiles_to_image(got, cfg).int()
+    b = raster.tiles_to_image(want, cfg).int()
+    assert int((a - b).abs().max()) <= K4_LSB_BOUND
+    assert int(b[..., :3].max()) > 0
+
+
+def test_wrappers_reject_bad_arguments(dev):
+    keys = torch.zeros(16, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        ranges.tile_edges(keys, 4, 0)
+    incl = torch.arange(8, dtype=torch.int32, device=dev)
+    cols = [torch.zeros(8, device=dev)] * 12 + [torch.zeros(16, device=dev)[::2]]
+    with pytest.raises(ValueError, match="contiguous"):
+        expand.interleave_rows(incl, cols, 100)
+    cfg = pt.RenderConfig(screen_size=64)
+    pair_data = torch.zeros((4, 512), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shape"):
+        raster.rasterize_tiles(pair_data, torch.zeros(3, dtype=torch.int32, device=dev),
+                               torch.zeros(3, dtype=torch.int32, device=dev), cfg)
+
+
+def test_frame_on_card_matches_golden_through_the_kernels(dev):
+    counted = (ranges.tile_edges, expand.interleave_rows, expand.emit_slots,
+               raster.rasterize_tiles)
+    before = [fn.launches for fn in counted]
+    scene = pt.random_scene(500, seed=2, device=dev)
+    cfg = pt.RenderConfig(screen_size=128)
+    cam = pt.Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max)
+    got = pt.Renderer(scene, cfg).render(cam)
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [1, 1, 1, 1]
+    want = golden_render(scene_to_numpy(scene), cam.camera_data(), cfg)
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert (diff > 8).any(axis=-1).mean() <= 0.02
