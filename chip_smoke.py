@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels from csrc/ (nvcc, at first use), then:
+It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
 
   1. card and build: the card's name and power limit, torch and CUDA
      versions, the build time, TF32 off;
@@ -15,7 +15,19 @@ It builds the four CUDA kernels from csrc/ (nvcc, at first use), then:
   3. golden scenes: the non-banded scenes of tools/tpu_selfcheck.py
      through the port, each against the port's golden.py oracle;
   4. the main path at full width: Renderer on the 1M-splat SH-3 scene at
-     1024x1024 over 8 orbit cameras, with the launch counts of K1-K4.
+     1024x1024 over 8 orbit cameras, with the launch counts of K1-K4;
+  5. banded kernel parity at full-width shapes: the same scene and camera
+     under sort_bands=16: each of K5-K8 against its plain PyTorch version
+     (exact), K1 in its segmented mode on the per-band-sorted keys, the
+     banded tile ranges, and K7+K8 on the huge-splat scene roomy,
+     pair-saturated and compact-saturated;
+  6. banded golden scenes: the two banded scenes of tools/tpu_selfcheck.py
+     against golden.py;
+  7. the banded main path at full width: Renderer with sort_bands=16 on
+     the same scene and cameras, with the launch counts of K5-K8, K1, K4;
+     after its warm-up frames the parity of phase 5 once more, at the
+     capacities and band rows the timed frames start from (the K5-K8 times
+     and bounds of the per-kernel line are taken there).
 
 Any failure raises and exits non-zero.  The last line of stdout is one
 JSON object naming the device; the line before it is the card's
@@ -88,6 +100,27 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+def device_busy_ms(fn):
+    """Summed device time (ms) of every kernel and copy that ``fn()``
+    enqueues, from torch.profiler; None when the trace holds no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 if us > 0 else None
+
+
+def require(ok, what):
+    if not ok:
+        raise AssertionError(what)
+
+
 def bits_equal(a, b) -> bool:
     import torch
 
@@ -106,13 +139,15 @@ def main() -> int:
     from cudagaussianrenderer_torch import RenderConfig, Renderer, orbit_cameras, random_scene
     from cudagaussianrenderer_torch.golden import golden_render, scene_to_numpy
     from cudagaussianrenderer_torch.models.camera import Camera
-    from cudagaussianrenderer_torch.ops import expand, ranges, raster
-    from cudagaussianrenderer_torch.ops.binning import TilePairs, emit_columns
+    from cudagaussianrenderer_torch.ops import banded, expand, ranges, raster
+    from cudagaussianrenderer_torch.ops.binning import (
+        TilePairs, emit_columns, splat_row_packs, splat_tile_rects,
+    )
     from cudagaussianrenderer_torch.ops.geometry import as_u32_i64
     from cudagaussianrenderer_torch.ops.projection import project_splats
     from cudagaussianrenderer_torch.ops.sorting import sort_pairs
     from cudagaussianrenderer_torch.render import (
-        _splat_colors, camera_tensors, render_frame, round_capacity,
+        _band_rows_tensor, _splat_colors, camera_tensors, render_frame, round_capacity,
     )
     from cudagaussianrenderer_torch.utils import cuda_build
 
@@ -279,7 +314,8 @@ def main() -> int:
 
     # ---- 3. golden scenes --------------------------------------------------
     # The non-banded cases of tools/tpu_selfcheck.py:52-106; its two banded
-    # cases and the balanced-bands case wait for the banded path's port.
+    # cases run in phase 6, its balanced-bands case waits for the
+    # multi-device port.
     log("== 3. golden scenes (port vs golden.py)")
     cases = [
         ("gaussian 128px", dict(n=500, seed=2, cfg=dict(screen_size=128))),
@@ -342,23 +378,329 @@ def main() -> int:
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
         + f"; sum {sum(stages.values()):.3f}")
 
+    # ---- 5. banded kernel parity at full-width shapes ----------------------
+    log("== 5. banded kernel parity (sort_bands=16) at full-width shapes")
+    G = 16
+    bcfg = RenderConfig(sort_bands=G)
+    brenderer = Renderer(scene, bcfg)
+    bcap, ccap = brenderer.capacity, brenderer.compact_capacity
+    band_rows = _band_rows_tensor(None, bcfg, dev)
+    rects = splat_tile_rects(clip, bcfg)
+    log(f"  fresh banded Renderer: capacity {bcap}, compact capacity {ccap}, "
+        f"band rows {band_rows.tolist()}")
+
+    def banded_stage_c(cols_, counts_, rows_, cap_, ccap_, cfg_):
+        """Every array of one banded emission, each kernel's output beside
+        its plain version's: name -> (kernel output, plain output)."""
+        n_ = counts_.shape[1]
+        block = banded.banded_block(cap_, ccap_, G)
+        pre = banded.band_prefixes(counts_, cap_ // G, ccap_ // G)
+        np_ = banded.padded_width(n_)
+        zeros = torch.zeros(n_, dtype=torch.float32, device=dev)
+        k5_in = (zeros, zeros) + tuple(cols_)
+        k6_in = banded.band_prefix_columns(pre, np_)
+        full = banded.interleave_rows_padded(k5_in, np_)
+        pfx = banded.stack_rows(k6_in)
+        comp = banded.compact_rows(full, pfx, pre.pair_end, ccap_)
+        outs_ = expand.emit_slots_banded(comp, cap_, cfg_, pre.pair_end, rows_, block)
+        plain = dict(
+            k5=banded._interleave_rows_padded_torch(k5_in, np_),
+            k6=banded._stack_rows_torch(k6_in),
+            k7=banded._compact_rows_torch(full, pfx, pre.pair_end, ccap_),
+            k8=expand._emit_torch(comp, cap_, cfg_, block=block, pair_end=pre.pair_end,
+                                  band_rows=rows_),
+        )
+        torch.cuda.synchronize()
+        return dict(pre=pre, block=block, k5_in=k5_in, k6_in=k6_in, full=full, pfx=pfx,
+                    comp=comp, outs=outs_, plain=plain)
+
+    def banded_parity(rows_, cap_, ccap_, must_fit):
+        """K5-K8, the segmented K1 and the banded tile ranges at one set of
+        full-width shapes (camera 0, the given band rows and capacities),
+        each held bit for bit against its plain version and timed.  With
+        ``must_fit`` no band may saturate at these capacities.
+        Returns the K5-K8 entries of the kernels line and K1's banded
+        numbers."""
+        counts_ = banded.band_counts(rects, splat_row_packs(clip, rects, bcfg), rows_)
+        require(bool(torch.equal(counts_.sum(0).to(torch.int32),
+                                 torch.diff(incl, prepend=incl[:1] * 0))),
+                "band counts do not sum to the flat candidate counts")
+        b = banded_stage_c(cols, counts_, rows_, cap_, ccap_, bcfg)
+        pre, np_b = b["pre"], b["full"].shape[1]
+        kept = int((b["comp"][0] != b["comp"][1]).sum())
+        log(f"  band totals {pre.band_totals.tolist()}")
+        log(f"  band splats {pre.band_splats.tolist()} ({kept} kept)")
+        saturated = (int(pre.band_totals.max()) > cap_ // G
+                     or int(pre.band_splats.max()) > ccap_ // G)
+        require(not (saturated and must_fit), "a band saturates at these capacities")
+        found = {}
+
+        ok5 = bits_equal(b["full"], b["plain"]["k5"])
+        lib5 = [torch.nn.functional.pad(c, (0, np_b - n)) for c in b["k5_in"]]
+        lib5.insert(2 + expand.R_IDX, torch.arange(np_b, device=dev, dtype=torch.float32))
+        require(bits_equal(torch.stack(lib5), b["full"]),
+                "K5's library yardstick computes another array")
+        found["interleave_padded"] = dict(
+            ms=cuda_ms(lambda: banded.interleave_rows_padded(b["k5_in"], np_b), 20),
+            plain_ms=cuda_ms(lambda: banded._interleave_rows_padded_torch(b["k5_in"], np_b), 5),
+            library_ms=cuda_ms(lambda: torch.stack(lib5), 20),
+            bytes=4 * n * 15 + 4 * 16 * np_b,
+            max_abs_err=float((b["full"] - b["plain"]["k5"]).abs().max()),
+        )
+        del lib5
+        log(f"  K5 interleave_padded [16, {np_b}]: bit-exact={ok5}")
+        require(ok5, "K5 interleave_padded differs from its plain version")
+
+        ok6 = bits_equal(b["pfx"], b["plain"]["k6"])
+        require(bits_equal(torch.stack(b["k6_in"]), b["pfx"]),
+                "K6's library yardstick computes another array")
+        found["stack"] = dict(
+            ms=cuda_ms(lambda: banded.stack_rows(b["k6_in"]), 20),
+            plain_ms=cuda_ms(lambda: banded._stack_rows_torch(b["k6_in"]), 5),
+            library_ms=cuda_ms(lambda: torch.stack(b["k6_in"]), 20),
+            bytes=2 * 4 * len(b["k6_in"]) * G * np_b,
+            max_abs_err=float((b["pfx"] - b["plain"]["k6"]).abs().max()),
+        )
+        log(f"  K6 stack [{len(b['k6_in'])}, {G * np_b}]: bit-exact={ok6}")
+        require(ok6, "K6 stack differs from its plain version")
+
+        ok7 = bits_equal(b["comp"], b["plain"]["k7"])
+        found["compact"] = dict(
+            ms=cuda_ms(lambda: banded.compact_rows(b["full"], b["pfx"], pre.pair_end, ccap_), 20),
+            plain_ms=cuda_ms(
+                lambda: banded._compact_rows_torch(b["full"], b["pfx"], pre.pair_end, ccap_), 3),
+            library_ms=None,
+            # What the function must read and write for this run's data:
+            # the two pair-prefix rows of every column, c_incl and the 14
+            # attribute rows of the kept columns only (a column with equal
+            # pair prefixes is done after those two reads), and the
+            # [16, ccap] output.
+            bytes=4 * 2 * G * np_b + 4 * kept + 4 * 14 * kept + 4 * 16 * ccap_,
+            max_abs_err=float((b["comp"] - b["plain"]["k7"]).abs().max()),
+        )
+        log(f"  K7 compact [16, {ccap_}]: bit-exact={ok7}")
+        require(ok7, "K7 compact differs from its plain version")
+
+        ok8 = all(bits_equal(x, y) for x, y in zip(b["outs"], b["plain"]["k8"]))
+        found["emit_banded"] = dict(
+            ms=cuda_ms(lambda: expand.emit_slots_banded(
+                b["comp"], cap_, bcfg, pre.pair_end, rows_, b["block"]), 20),
+            plain_ms=cuda_ms(lambda: expand._emit_torch(
+                b["comp"], cap_, bcfg, block=b["block"], pair_end=pre.pair_end,
+                band_rows=rows_), 2),
+            library_ms=None,
+            # The two prefix rows of every compact column, the 14 attribute
+            # rows of the kept ones (a column that owns no slot is done
+            # after its prefixes), and the six [capacity] words.
+            bytes=4 * 2 * ccap_ + 4 * 14 * kept + 4 * 6 * cap_,
+            max_abs_err=max(float((as_u32_i64(x) - as_u32_i64(y)).abs().max())
+                            for x, y in zip(b["outs"], b["plain"]["k8"])),
+        )
+        log(f"  K8 emit_banded {cap_} slots in {G} bands: six outputs equal={ok8}")
+        require(ok8, "K8 emit_banded differs from its plain version")
+
+        # K1 on the per-band-sorted keys: the one place where boundary
+        # detection on a list that is not globally sorted could go wrong.
+        bouts = b["outs"]
+        bpairs = TilePairs(
+            keys=(bouts[expand.OUT_KEY0],), values=bouts[expand.OUT_VALUES],
+            attrs=tuple(bouts[expand.OUT_CXCY:]), num_candidates=pre.band_totals.sum(),
+            num_pairs=(bouts[expand.OUT_VALUES] >= 0).sum(),
+        )
+        bkeys, _, _ = banded.sort_pairs_banded(bpairs, G, stable=bcfg.stable_sort)
+        bedges = ranges.tile_edges(bkeys[0], probes, 19, segments=G)
+        bedges_p = ranges._edges_torch(bkeys[0], probes, 19, segments=G)
+        ok1b = bits_equal(bedges, bedges_p)
+        k1b = dict(
+            banded_ms=cuda_ms(lambda: ranges.tile_edges(bkeys[0], probes, 19, segments=G), 50),
+            banded_plain_ms=cuda_ms(
+                lambda: ranges._edges_torch(bkeys[0], probes, 19, segments=G), 10),
+            banded_bound_ms=(4 * cap_ + 4 * G * probes) / HBM_BYTES_PER_S * 1e3,
+        )
+        log(f"  K1 edges, segmented: {G} x {cap_ // G} keys, {probes} probes: exact={ok1b}, "
+            f"{k1b['banded_ms']:.4f} ms (plain {k1b['banded_plain_ms']:.4f} ms, bound "
+            f"{k1b['banded_bound_ms']:.4f} ms by bytes)")
+        require(ok1b, "K1 edges (segmented) differ from the plain version")
+        # Banded tile ranges against the histogram of the whole list, which
+        # needs no order: counts are its differences, and a tile of band g
+        # starts g * capacity / G past the band's first edge.
+        bstarts, bcounts = ranges.tile_ranges(bkeys, bcfg, band_rows=rows_, band_capacity=cap_ // G)
+        hist = ranges._edges_torch(bkeys[0], probes, 19)
+        tile_band = torch.searchsorted(
+            rows_[1:].contiguous(),
+            (torch.arange(bcfg.total_tiles, device=dev) // bcfg.tiles_x).to(torch.int32),
+            right=True)
+        want_starts = (tile_band * (cap_ // G) + hist[:-1]
+                       - hist[(rows_[:-1].long() * bcfg.tiles_x)][tile_band]).to(torch.int32)
+        okr = bits_equal(bcounts, hist[1:] - hist[:-1]) and bits_equal(bstarts, want_starts)
+        log(f"  banded tile_ranges over {bcfg.total_tiles} tiles: starts and counts exact={okr}")
+        require(okr, "banded tile_ranges differ from the whole-list histogram")
+        require(int(bcounts.sum()) == int(bpairs.num_pairs)
+                and (int(bpairs.num_pairs) == total) == (not saturated),
+                "the banded ranges do not cover the emitted pairs")
+        log("  ms (plain ms; byte bound ms): " + ", ".join(
+            f"{name} {k['ms']:.4f} ({k['plain_ms']:.3f}; "
+            f"{k['bytes'] / HBM_BYTES_PER_S * 1e3:.4f})" for name, k in found.items()))
+        return found, k1b
+
+    banded_parity(band_rows, bcap, ccap, must_fit=False)
+
+    # K5-K8 on the huge-splat scene: roomy, pair-saturated, compact-saturated.
+    hbcfg = RenderConfig(screen_size=1024, sort_bands=G)
+    hrows_b = _band_rows_tensor(None, hbcfg, dev)
+    hrects = splat_tile_rects(hclip, hbcfg)
+    hcounts = banded.band_counts(hrects, splat_row_packs(hclip, hrects, hbcfg), hrows_b)
+    roomy = banded.band_prefixes(hcounts, 1048576 // G, 1024)
+    htot, hspl = int(roomy.band_totals.max()), int(roomy.band_splats.max())
+    pair_sat = max(1024, htot // 2 // 1024 * 1024) * G
+    for label, hcap, hccap in (("roomy", 1048576, G * 1024),
+                               ("pair-saturated", pair_sat, G * 1024),
+                               ("compact-saturated", 1048576, G * 128)):
+        hb = banded_stage_c(hcols, hcounts, hrows_b, hcap, hccap, hbcfg)
+        sat_p = int(hb["pre"].band_totals.max()) > hcap // G
+        sat_c = int(hb["pre"].band_splats.max()) > hccap // G
+        ok = (bits_equal(hb["full"], hb["plain"]["k5"]) and bits_equal(hb["pfx"], hb["plain"]["k6"])
+              and bits_equal(hb["comp"], hb["plain"]["k7"])
+              and all(bits_equal(x, y) for x, y in zip(hb["outs"], hb["plain"]["k8"])))
+        emitted = int((hb["outs"][expand.OUT_VALUES] >= 0).sum())
+        log(f"  K5-K8 huge splats, {label}: capacity {hcap}, compact {hccap}, largest band "
+            f"{htot} pairs / {hspl} splats, {emitted} of {htotal} pairs emitted: equal={ok}")
+        require(ok, f"K5-K8 differ from their plain versions on huge splats ({label})")
+        require((sat_p, sat_c) == (label == "pair-saturated", label == "compact-saturated"),
+                f"huge-splat case {label} does not saturate as intended")
+        require((emitted == htotal) == (label == "roomy"), f"{label}: {emitted} pairs emitted")
+
+    # ---- 6. banded golden scenes -------------------------------------------
+    log("== 6. banded golden scenes (port vs golden.py)")
+    bcases = [
+        ("banded G=8 128px", dict(n=500, seed=2, cfg=dict(screen_size=128, sort_bands=8),
+                                  ccap=8 * 1024)),
+        ("banded G=16 huge 1024px", dict(
+            n=192, seed=9, scene_kw=dict(min_scale=0.3, max_scale=1.6, extent=3.0),
+            cfg=dict(screen_size=1024, sort_bands=16), capacity=1048576, ccap=16 * 1024,
+        )),
+    ]
+    for name, c in bcases:
+        gcfg = RenderConfig(**c["cfg"])
+        gscene = random_scene(
+            c["n"], seed=c["seed"], device=dev, **c.get("scene_kw", {})
+        ).pad_to_multiple(256)
+        gcam = Camera(aspect=gcfg.aspect).framed(gscene.bounds_min, gscene.bounds_max)
+        gcap = c.get("capacity", 16384)
+        got, aux = render_frame(gscene, gcam.camera_data(), gcfg, gcap,
+                                compact_capacity=c["ccap"])
+        require(int(aux["num_candidates"]) <= gcap, f"{name}: saturated, raise the case capacity")
+        require(int(aux["band_totals"].max()) <= gcap // gcfg.sort_bands,
+                f"{name}: a band saturated, raise the case capacity")
+        require(int(aux["band_splats"].max()) <= c["ccap"] // gcfg.sort_bands,
+                f"{name}: band compaction saturated, raise the case ccap")
+        want = golden_render(scene_to_numpy(gscene), gcam.camera_data(), gcfg)
+        check(name, got.cpu().numpy(), want)
+
+    # ---- 7. banded main path at full width ---------------------------------
+    log(f"== 7. banded main path: Renderer(sort_bands={G}), same scene and cameras")
+    bcounted = (banded.interleave_rows_padded, banded.stack_rows, banded.compact_rows,
+                expand.emit_slots_banded, ranges.tile_edges, raster.rasterize_tiles)
+    uniform_rows = brenderer.band_rows.copy()
+    for i in range(3):  # the capacities and the band rows settle from the previous frame
+        before = (brenderer.capacity, brenderer.compact_capacity)
+        brenderer.render(cams[0])
+        if (brenderer.capacity, brenderer.compact_capacity) == before:
+            break
+    log(f"  {i + 1} warm-up frames: capacity {brenderer.capacity}, compact capacity "
+        f"{brenderer.compact_capacity}, band rows {brenderer.band_rows.tolist()}")
+    # The kernels once more, at the shapes the timed frames run: the settled
+    # capacities and the rebalanced, non-uniform band rows.  These are the
+    # times and bounds of the kernels line.
+    log("  banded kernel parity at the settled shapes")
+    settled_kernels, k1b = banded_parity(
+        _band_rows_tensor(brenderer.band_rows, bcfg, dev), brenderer.capacity,
+        brenderer.compact_capacity, must_fit=True)
+    kernels.update(settled_kernels)
+    torch.cuda.synchronize()
+
+    def timed_orbit(r):
+        """(frames, ms/frame, per-frame state) of one pass over the cameras."""
+        frames_, state = [], []
+        t0_ = time.perf_counter()
+        for c_ in cams:
+            cap_, ccap_ = r.capacity, getattr(r, "compact_capacity", 0)
+            frames_.append(r.render(c_))
+            state.append((cap_, ccap_, r.last_candidates, r.last_band_totals, r.last_band_splats))
+        return frames_, (time.perf_counter() - t0_) * 1e3 / len(cams), state
+
+    for fn in bcounted:
+        fn.launches = 0
+    bframes, banded_ms, bstate = timed_orbit(brenderer)
+    blaunches = {fn.__name__: fn.launches for fn in bcounted}
+    _, flat_ms_2, _ = timed_orbit(renderer)
+    _, banded_ms_2, bstate_2 = timed_orbit(brenderer)
+    _, flat_ms_3, _ = timed_orbit(renderer)
+    bcands = [st[2] for st in bstate]
+    log(f"  {len(cams)} frames: {banded_ms:.3f} ms/frame, {1e3 / banded_ms:.2f} FPS, "
+        f"pairs/frame mean {sum(bcands) / len(bcands):.0f}, capacity {brenderer.capacity}, "
+        f"compact capacity {brenderer.compact_capacity}")
+    log(f"  launches in the banded main path: {blaunches}")
+    for name, count in blaunches.items():
+        require(count >= len(cams), f"{name} launched {count} times in {len(cams)} banded frames")
+    for i, (img, (cap_, ccap_, cands_, totals_, splats_)) in enumerate(
+            zip(bframes + [None] * len(cams), bstate + bstate_2)):
+        if img is not None:
+            require(img.shape == (1024, 1024, 4) and img[..., 3].max() == 255
+                    and img[..., :3].max() > 0, f"banded frame {i} is blank or misshapen")
+        require(int(totals_.max()) <= cap_ // G and int(splats_.max()) <= ccap_ // G,
+                f"banded frame {i}: a band saturated (totals {totals_.tolist()}, "
+                f"splats {splats_.tolist()}, capacity {cap_}, compact {ccap_})")
+        require(int(totals_.sum()) == cands_, f"banded frame {i}: band totals do not add up")
+    require(bcands == cands, f"banded candidates {bcands} differ from the flat path's {cands}")
+    check("banded frame 0 vs flat frame 0", bframes[0], frames[0])
+    rows_now = brenderer.band_rows
+    log(f"  band rows after the orbit: {rows_now.tolist()}; last per-band totals "
+        f"{bstate[-1][3].tolist()}")
+    require(not (rows_now == uniform_rows).all(), "the band rows never moved off uniform")
+    require(rows_now[0] == 0 and rows_now[-1] == bcfg.tiles_y and (rows_now[1:] >= rows_now[:-1]).all(),
+            f"band rows {rows_now.tolist()} are not a monotone partition of the tile rows")
+    bstages = brenderer.profile_frame(cams[1], warmup=True)
+    log("  per-stage ms (CUDA events, stages back to back): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in bstages.items())
+        + f"; sum {sum(bstages.values()):.3f}")
+    log(f"  flat vs banded ms/frame, in turns (flat, banded, flat, banded, flat): "
+        f"{ms_frame:.3f}, {banded_ms:.3f}, {flat_ms_2:.3f}, {banded_ms_2:.3f}, {flat_ms_3:.3f}")
+
+    # How much of a frame the card works: kernel and copy time from a
+    # profiler trace of 4 frames, against the untraced frame time above.
+    for label, r, wall_ms in (("flat", renderer, flat_ms_3), ("banded", brenderer, banded_ms_2)):
+        busy = device_busy_ms(lambda: [r.render(c_) for c_ in cams[:4]])
+        if busy is None:
+            log(f"  {label}: device busy share not measured (the trace holds no device time)")
+        else:
+            log(f"  {label}: device busy {busy / 4:.3f} ms/frame of {wall_ms:.3f} ms/frame, "
+                f"idle share {1 - busy / 4 / wall_ms:.3f}")
+
+    P = "cudagaussianrenderer_tpu/ops/"
+    # name -> (source file, counted wrapper, path that runs it, TPU kernel)
     names = {
-        "edges": ("tile_edges", "cudagaussianrenderer_tpu/ops/ranges.py:40"),
-        "interleave": ("interleave_rows", "cudagaussianrenderer_tpu/ops/expand.py:107"),
-        "emit": ("emit_slots", "cudagaussianrenderer_tpu/ops/expand.py:206"),
-        "raster": ("rasterize_tiles", "cudagaussianrenderer_tpu/ops/raster.py:132"),
+        "edges": ("edges", "tile_edges", launches, P + "ranges.py:40"),
+        "interleave": ("interleave", "interleave_rows", launches, P + "expand.py:107"),
+        "emit": ("emit", "emit_slots", launches, P + "expand.py:206"),
+        "raster": ("raster", "rasterize_tiles", launches, P + "raster.py:132"),
+        "interleave_padded": ("interleave", "interleave_rows_padded", blaunches, P + "banded.py:55"),
+        "stack": ("stack", "stack_rows", blaunches, P + "banded.py:265"),
+        "compact": ("compact", "compact_rows", blaunches, P + "banded.py:88"),
+        "emit_banded": ("emit", "emit_slots_banded", blaunches,
+                        P + "expand.py:206 (bpb > 0; launched at ops/banded.py:517)"),
     }
     line = []
-    for key in ("edges", "interleave", "emit", "raster"):
+    for key, (source, wrapper, counts_of, replaces) in names.items():
         k = kernels[key]
         bytes_ms = k["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = k.get("ops", 0) / F32_OPS_PER_S * 1e3
         line.append(dict(
             name=key,
             route="cuda",
-            source=f"cudagaussianrenderer_torch/csrc/{key}.cu",
-            replaces=names[key][1],
-            launches=launches[names[key][0]],
+            source=f"cudagaussianrenderer_torch/csrc/{source}.cu",
+            replaces=replaces,
+            launches=counts_of[wrapper],
             max_abs_err=k["max_abs_err"],
             ms=k["ms"],
             plain_ms=k["plain_ms"],
@@ -366,6 +708,8 @@ def main() -> int:
             bound_by="operations" if ops_ms > bytes_ms else "bytes",
             library_ms=k["library_ms"],
         ))
+    # K1 also runs once per banded frame, in its segmented mode.
+    line[0].update(banded_launches=blaunches["tile_edges"], **k1b)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}), flush=True)
     print(card_line(), flush=True)

@@ -2,13 +2,20 @@
 
 The port of ``cudagaussianrenderer_tpu`` to one NVIDIA Hopper card.  The
 stage functions keep the JAX package's names, planar layouts and outputs;
-its four Pallas kernels of the default frame become CUDA C++ kernels under
-``csrc/`` (built with nvcc at first use, see utils/cuda_build.py):
+its eight Pallas kernels become CUDA C++ kernels under ``csrc/`` (built
+with nvcc at first use, see utils/cuda_build.py).  The default frame:
 
   K1 csrc/edges.cu       ops.ranges.tile_edges        tile ranges
   K2 csrc/interleave.cu  ops.expand.interleave_rows   emit row array
   K3 csrc/emit.cu        ops.expand.emit_slots        pair-list emission
   K4 csrc/raster.cu      ops.raster.rasterize_tiles   tile blending
+
+The banded frame (``RenderConfig(sort_bands=G)``), besides K1 and K4:
+
+  K5 csrc/interleave.cu  ops.banded.interleave_rows_padded  source row array
+  K6 csrc/stack.cu       ops.banded.stack_rows              prefix row array
+  K7 csrc/compact.cu     ops.banded.compact_rows            band compaction
+  K8 csrc/emit.cu        ops.expand.emit_slots_banded       banded emission
 
 Each wrapper runs its kernel for CUDA tensors and its plain PyTorch
 version for CPU tensors.  Entry points default to the card; pass

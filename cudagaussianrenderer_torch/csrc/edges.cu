@@ -12,6 +12,14 @@
 // scan.  Bins are clamped to num_probes - 1, which leaves every edge below
 // it unchanged.
 //
+// A band-segmented list (ops/banded.py) is sorted only within each of its
+// G equal segments, with a run of sentinels between one band's pairs and
+// the next band's.  Neighbours across a segment border are then out of
+// order, so the kernel takes the segment length and treats every segment
+// as a list of its own (blockIdx.y = segment): row s of the [G, num_probes]
+// output holds the edges of segment s alone.  The flat list is the case of
+// one segment.
+//
 // Bound on this card: bytes.  The keys are read once (4 B a key; 15 MB at
 // the main path's 3.8M slots, ~4.5 us at 3.35 TB/s) and 4 B a probe is
 // written.  Neighbouring threads read neighbouring keys, so the loads
@@ -25,6 +33,8 @@ __global__ void edges_kernel(const uint32_t* __restrict__ keys, long long n,
                              int* __restrict__ edges) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (i > n) return;
+  keys += blockIdx.y * n;
+  edges += blockIdx.y * static_cast<long long>(num_probes);
   const uint32_t last = static_cast<uint32_t>(num_probes - 1);
   uint32_t lo = 0;
   uint32_t hi = last;
@@ -35,11 +45,13 @@ __global__ void edges_kernel(const uint32_t* __restrict__ keys, long long n,
 
 }  // namespace
 
-GSR_EXPORT int gsr_edges(const void* keys, long long n, int shift,
+// keys: ``segments`` runs of n keys each, every run sorted on its own;
+// edges: [segments, num_probes].
+GSR_EXPORT int gsr_edges(const void* keys, long long n, int segments, int shift,
                          int num_probes, void* edges, void* stream) {
   constexpr int kThreads = 256;
-  edges_kernel<<<gsr::blocks_for(n + 1, kThreads), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(gsr::blocks_for(n + 1, kThreads), segments);
+  edges_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(keys), n, shift, num_probes,
       static_cast<int*>(edges));
   return static_cast<int>(cudaGetLastError());

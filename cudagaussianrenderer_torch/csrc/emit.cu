@@ -1,4 +1,5 @@
-// Kernel K3: emit the fixed-capacity (tile, splat) pair list (stage C).
+// Kernels K3 and K8: emit the fixed-capacity (tile, splat) pair list
+// (stage C), flat and band-segmented.
 //
 // Replaces ops/expand.py:_emit_kernel of the JAX package (with
 // _emit_block, _emit_payload and _store_sentinels; launched at
@@ -30,6 +31,17 @@
 // stores land in a few contiguous runs.  Work per thread follows the
 // splat's pair count (~4 on the main path), so warps stay balanced there;
 // a scene of huge splats makes the widest splat in a warp set its time.
+//
+// K8, the banded mode (the JAX kernel with bpb > 0, launched at
+// ops/banded.py:517 there): the rows are the band-compacted array of K7,
+// column c belongs to band g = c / MC, and its prefix rows are already
+// offset into band g's slot segment [g * CG, (g + 1) * CG).  Two things
+// change in the walk: a packed run of row r counts only if the tile row
+// y0 + r lies in the band's rows [lo_g, hi_g), and the full-rect
+// fallthrough starts at the first in-band row, max(base_row, lo_g - y0).
+// Past band g's pair end the slots of its segment carry sentinels, with
+// the JAX block layout applied per band.  Same bound: 16 rows of 4 B per
+// compact column in, six words per slot out.
 #include "common.cuh"
 
 namespace {
@@ -97,13 +109,32 @@ struct Outs {
   uint32_t* rgba;
 };
 
+// Banded mode only: G bands of MC compact columns and CG slots each, the
+// [G] pair end slots and the [G + 1] tile-row boundaries (device arrays).
+struct Bands {
+  int n_bands;
+  long long mc;
+  int cg;
+  const int* pair_end;
+  const int* band_rows;
+};
+
+template <bool kBanded>
 __global__ void emit_kernel(const float* __restrict__ rows, long long np,
-                            int capacity, int packed, int tiles_x, Outs out) {
+                            int capacity, int packed, int tiles_x, Bands bands,
+                            Outs out) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (i >= np) return;
   const int excl = static_cast<int>(rows[kRowExcl * np + i]);
   const int end = min(static_cast<int>(rows[kRowIncl * np + i]), capacity);
   if (excl >= end) return;
+  int band_lo = 0, band_hi = 0;
+  if (kBanded) {
+    const int g = static_cast<int>(
+        min(i / bands.mc, static_cast<long long>(bands.n_bands - 1)));
+    band_lo = bands.band_rows[g];
+    band_hi = bands.band_rows[g + 1];
+  }
 
   const auto row = [&](int r) { return rows[r * np + i]; };
   const uint32_t geom = static_cast<uint32_t>(row(kRowGeom));
@@ -141,14 +172,16 @@ __global__ void emit_kernel(const float* __restrict__ rows, long long np,
   for (int r = 0; r < 8 && j < end; ++r) {
     const uint32_t half = (r & 1) ? (packs[r >> 1] & 4095u) : (packs[r >> 1] >> 12);
     const int dx = static_cast<int>(half >> 6);
-    const int w = static_cast<int>(half & 63u);
+    int w = static_cast<int>(half & 63u);
+    if (kBanded && (y0 + r < band_lo || y0 + r >= band_hi)) w = 0;
     const int base = (y0 + r) * tiles_x + x0 + dx;
     for (int x = 0; x < w && j < end; ++x) emit(base + x);
   }
   // Full-rect fallthrough: rows 8+ of tall splats, or the whole rect of
   // splats wider than 63 tiles (whose runs are all empty).
   const int wf = max(w_raw, 1);
-  const int base_row = w_raw > 63 ? 0 : 8;
+  int base_row = w_raw > 63 ? 0 : 8;
+  if (kBanded) base_row = max(base_row, band_lo - y0);
   for (int extra = 0; j < end; ++extra) {
     const int ly = extra / wf;
     const int lx = extra % wf;
@@ -156,13 +189,22 @@ __global__ void emit_kernel(const float* __restrict__ rows, long long np,
   }
 }
 
+template <bool kBanded>
 __global__ void sentinel_kernel(const float* __restrict__ rows, long long np,
                                 int capacity, int block, int packed,
-                                uint32_t sentinel_tile, Outs out) {
+                                uint32_t sentinel_tile, Bands bands, Outs out) {
   const long long j = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
   if (j >= capacity) return;
-  // The pad block's inclusive prefix is min(total, capacity + 1).
-  const int total = min(static_cast<int>(rows[kRowIncl * np + np - 1]), capacity);
+  int total;
+  if (kBanded) {
+    // The slot's band ends at its own pair end; emit blocks divide CG, so
+    // the block layout below never crosses into the next band.
+    const int g = min(static_cast<int>(j / bands.cg), bands.n_bands - 1);
+    total = min(bands.pair_end[g], capacity);
+  } else {
+    // The pad block's inclusive prefix is min(total, capacity + 1).
+    total = min(static_cast<int>(rows[kRowIncl * np + np - 1]), capacity);
+  }
   if (j < total) return;
   const long long live_end =
       min(static_cast<long long>(capacity),
@@ -177,23 +219,52 @@ __global__ void sentinel_kernel(const float* __restrict__ rows, long long np,
   out.rgba[j] = pay.rgba;
 }
 
+template <bool kBanded>
+int launch_emit(const float* rows, long long np, int capacity, int block,
+                int packed, int tiles_x, int sentinel_tile, Bands bands,
+                Outs out, cudaStream_t s) {
+  constexpr int kThreads = 256;
+  emit_kernel<kBanded><<<gsr::blocks_for(np, kThreads), kThreads, 0, s>>>(
+      rows, np, capacity, packed, tiles_x, bands, out);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sentinel_kernel<kBanded><<<gsr::blocks_for(capacity, kThreads), kThreads, 0, s>>>(
+      rows, np, capacity, block, packed, static_cast<uint32_t>(sentinel_tile),
+      bands, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Outs make_outs(void* key0, void* key1, void* values, void* cxcy, void* conic,
+               void* rgba) {
+  return {static_cast<uint32_t*>(key0), static_cast<uint32_t*>(key1),
+          static_cast<int*>(values),    static_cast<uint32_t*>(cxcy),
+          static_cast<uint32_t*>(conic), static_cast<uint32_t*>(rgba)};
+}
+
 }  // namespace
 
 GSR_EXPORT int gsr_emit(const void* rows, long long np, int capacity,
                         int block, int packed, int tiles_x, int sentinel_tile,
                         void* key0, void* key1, void* values, void* cxcy,
                         void* conic, void* rgba, void* stream) {
-  const Outs out = {static_cast<uint32_t*>(key0), static_cast<uint32_t*>(key1),
-                    static_cast<int*>(values),    static_cast<uint32_t*>(cxcy),
-                    static_cast<uint32_t*>(conic), static_cast<uint32_t*>(rgba)};
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* r = static_cast<const float*>(rows);
-  constexpr int kThreads = 256;
-  emit_kernel<<<gsr::blocks_for(np, kThreads), kThreads, 0, s>>>(
-      r, np, capacity, packed, tiles_x, out);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sentinel_kernel<<<gsr::blocks_for(capacity, kThreads), kThreads, 0, s>>>(
-      r, np, capacity, block, packed, static_cast<uint32_t>(sentinel_tile), out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_emit<false>(static_cast<const float*>(rows), np, capacity, block,
+                            packed, tiles_x, sentinel_tile, Bands{},
+                            make_outs(key0, key1, values, cxcy, conic, rgba),
+                            static_cast<cudaStream_t>(stream));
+}
+
+// rows: the [16, G * mc] band-compacted array; capacity = G * cg slots.
+GSR_EXPORT int gsr_emit_banded(const void* rows, int n_bands, long long mc,
+                               int cg, int block, int packed, int tiles_x,
+                               int sentinel_tile, const void* pair_end,
+                               const void* band_rows, void* key0, void* key1,
+                               void* values, void* cxcy, void* conic,
+                               void* rgba, void* stream) {
+  const Bands bands = {n_bands, mc, cg, static_cast<const int*>(pair_end),
+                       static_cast<const int*>(band_rows)};
+  return launch_emit<true>(static_cast<const float*>(rows), mc * n_bands,
+                           cg * n_bands, block, packed, tiles_x, sentinel_tile,
+                           bands,
+                           make_outs(key0, key1, values, cxcy, conic, rgba),
+                           static_cast<cudaStream_t>(stream));
 }

@@ -231,6 +231,41 @@ class TilePairs(NamedTuple):
     num_pairs: torch.Tensor         # scalar int32: candidates within capacity
 
 
+def pack_columns(
+    clip_data: SplatClipData,
+    colors: torch.Tensor,
+    opacities: torch.Tensor,
+    config: RenderConfig,
+    rects: TileRects,
+    row_packs: RowPacks,
+):
+    """The 13 flat [N] f32 per-splat columns of the emit kernels, in R_*
+    order without R_IDX."""
+    depth_bits = (
+        DEPTH_BITS_PACKED if config.depth_bits == DEPTH_BITS_PACKED else 24
+    )
+    qdepth = quantize_depth(clip_data.clip_z, depth_bits)
+    rgb_u32 = pack_rgb_u32(colors)
+    # Tile rect packed into one exact-f32 value: (x0*256 + y0)*256 + w,
+    # all components <= 255 (config caps tiles per axis) so < 2^24.
+    geom = (
+        (rects.x0.to(torch.float32) * 256.0 + rects.y0.to(torch.float32)) * 256.0
+        + rects.w.to(torch.float32)
+    )
+    return (
+        geom,
+        qdepth.to(torch.float32),          # < 2^24, exact in f32
+        clip_data.cx,
+        clip_data.cy,
+        clip_data.con_a,
+        clip_data.con_b,
+        clip_data.con_c,
+        rgb_u32.to(torch.float32),         # < 2^24, exact in f32
+        opacities,
+        *row_packs.packs,                  # 4 rows of (dx, w) 6-bit fields
+    )
+
+
 def emit_columns(
     clip_data: SplatClipData,
     colors: torch.Tensor,
@@ -245,31 +280,7 @@ def emit_columns(
     rects = splat_tile_rects(clip_data, config, row_band=row_band)
     row_packs = splat_row_packs(clip_data, rects, config)
     incl = torch.cumsum(row_packs.counts, 0, dtype=torch.int32)
-
-    depth_bits = (
-        DEPTH_BITS_PACKED if config.depth_bits == DEPTH_BITS_PACKED else 24
-    )
-    qdepth = quantize_depth(clip_data.clip_z, depth_bits)
-    rgb_u32 = pack_rgb_u32(colors)
-    # Tile rect packed into one exact-f32 value: (x0*256 + y0)*256 + w,
-    # all components <= 255 (config caps tiles per axis) so < 2^24.
-    geom = (
-        (rects.x0.to(torch.float32) * 256.0 + rects.y0.to(torch.float32)) * 256.0
-        + rects.w.to(torch.float32)
-    )
-    cols = (
-        geom,
-        qdepth.to(torch.float32),          # < 2^24, exact in f32
-        clip_data.cx,
-        clip_data.cy,
-        clip_data.con_a,
-        clip_data.con_b,
-        clip_data.con_c,
-        rgb_u32.to(torch.float32),         # < 2^24, exact in f32
-        opacities,
-        *row_packs.packs,                  # 4 rows of (dx, w) 6-bit fields
-    )
-    return cols, incl
+    return pack_columns(clip_data, colors, opacities, config, rects, row_packs), incl
 
 
 def build_tile_pairs(

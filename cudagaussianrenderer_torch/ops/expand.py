@@ -1,4 +1,5 @@
-"""Tile-list emission — kernels K2 (interleave) and K3 (emit) of stage C.
+"""Tile-list emission — kernels K2 (interleave), K3 (emit) and K8 (banded
+emit) of stage C.
 
 Slot j of the fixed-capacity pair list belongs to the splat whose
 [excl_i, incl_i) candidate-count prefix segment contains j; the slot gets
@@ -17,10 +18,14 @@ writes its own slot range (csrc/emit.cu).  The two kernels here:
     clamped total), bit for bit.
   * K3 ``emit_slots`` (csrc/emit.cu) reads those rows and writes the six
     [capacity] words, equal slot for slot to the JAX ``_emit_kernel``.
+  * K8 ``emit_slots_banded`` (the banded mode of csrc/emit.cu) does the
+    same over the band-compacted rows of ops.banded.compact_rows, with the
+    slots segmented into G bands, equal slot for slot to the JAX
+    ``_emit_kernel`` with ``bpb > 0``.
 
 Each has a plain PyTorch version beside it (``_interleave_rows_torch``,
-``_emit_torch``) that the wrapper runs for CPU tensors; on a CUDA tensor
-the wrapper launches the kernel or raises.
+``_emit_torch``, flat and banded) that the wrapper runs for CPU tensors;
+on a CUDA tensor the wrapper launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -146,17 +151,29 @@ interleave_rows.launches = 0
 # K3: emit
 # ---------------------------------------------------------------------------
 
-def _emit_torch(rows: torch.Tensor, capacity: int, config: RenderConfig):
-    """Plain PyTorch version of K3 (see emit_slots): one lane per SLOT,
+def _emit_torch(rows: torch.Tensor, capacity: int, config: RenderConfig, *, block=None,
+                pair_end=None, band_rows=None):
+    """Plain PyTorch version of K3 (see emit_slots) and, with ``pair_end``
+    and ``band_rows``, of K8 (see emit_slots_banded): one lane per SLOT,
     each finding its owner by binary search over the inclusive prefix
     row, the decomposition of the JAX kernel rather than the CUDA one."""
     dev = rows.device
     np_cols = rows.shape[1]
-    block = emit_block(capacity)
+    banded = pair_end is not None
+    if block is None:
+        block = emit_block(capacity)
     incl = rows[1].to(torch.int64)
     excl = rows[0].to(torch.int64)
     j = torch.arange(capacity, device=dev, dtype=torch.int64)
-    total = torch.clamp(incl[-1], max=capacity)
+    if banded:
+        # Each slot's band ends at that band's pair end; the compacted
+        # inclusive row is monotone across bands, so the search still holds.
+        band = j // (capacity // pair_end.shape[0])
+        total = torch.clamp(pair_end.to(torch.int64), max=capacity)[band]
+        band_lo = band_rows.to(torch.int64)[band]
+        band_hi = band_rows.to(torch.int64)[band + 1]
+    else:
+        total = torch.clamp(incl[-1], max=capacity)
     valid = j < total
     owner = torch.clamp(torch.searchsorted(incl, j, right=True), max=np_cols - 1)
     # Slots past the total in a block that holds pairs see all-zero rows
@@ -181,6 +198,9 @@ def _emit_torch(rows: torch.Tensor, capacity: int, config: RenderConfig):
         half = (p >> 12) if r % 2 == 0 else (p & 4095)
         dx_r = half >> 6
         w_r = half & 63
+        if banded:
+            # Only runs on the band's own tile rows count.
+            w_r = torch.where((y0 + r >= band_lo) & (y0 + r < band_hi), w_r, 0)
         nxt = cum + w_r
         m = (cum <= o) & (o < nxt)
         sel_cum = torch.where(m, cum, sel_cum)
@@ -193,6 +213,9 @@ def _emit_torch(rows: torch.Tensor, capacity: int, config: RenderConfig):
     ly_rel = extra // w_f
     lx_o = extra - ly_rel * w_f
     base_row = torch.where(w_raw > 63, 0, 8)
+    if banded:
+        # Full-width rows start at the band's first row.
+        base_row = torch.maximum(base_row, band_lo - y0)
     gy = y0 + torch.where(in_packed, sel_ly, base_row + ly_rel)
     gx = x0 + torch.where(in_packed, sel_dx + (o - sel_cum), lx_o)
     tile = gy * config.tiles_x + gx
@@ -252,6 +275,70 @@ def emit_slots(rows: torch.Tensor, capacity: int, config: RenderConfig):
 
 
 emit_slots.launches = 0
+
+
+def emit_slots_banded(
+    rows: torch.Tensor,
+    capacity: int,
+    config: RenderConfig,
+    pair_end: torch.Tensor,
+    band_rows: torch.Tensor,
+    block: int,
+):
+    """K8: the six [capacity] int32 words of a band-segmented pair list,
+    from the band-compacted rows of ops.banded.compact_rows.
+
+    rows: [16, G * MC] f32; column c belongs to band c // MC and its prefix
+    rows hold band-offset pair prefixes inside [g * CG, (g + 1) * CG),
+    CG = capacity / G.  pair_end: [G] int32, the slot where band g's pairs
+    end; band_rows: [G + 1] int32 tile-row boundaries.  Slots below a
+    band's pair end are filled as emit_slots fills them, except that a
+    splat's ordinals count only tiles on the band's rows: packed runs of
+    rows outside [lo_g, hi_g) are skipped and the full-rect fallthrough
+    starts at max(base_row, lo_g - y0), mirroring ops.banded.band_counts.
+    From the pair end to the end of the segment: sentinel keys, value -1,
+    and the attribute fill of the JAX kernel's block layout per band
+    (``block`` slots per block, dividing CG; see ops.banded.banded_block).
+    Replaces the banded mode (bpb > 0) of ops/expand.py:_emit_kernel of
+    the JAX package.
+    """
+    if capacity + 1 >= MAX_EXACT_I32:
+        raise ValueError("capacity too large for exact f32 prefix rows")
+    n_bands = pair_end.shape[0]
+    cg = capacity // n_bands
+    mc = rows.shape[1] // n_bands
+    if cg * n_bands != capacity or cg % block or mc * n_bands != rows.shape[1]:
+        raise ValueError(
+            f"capacity {capacity} and {rows.shape[1]} compact columns must split "
+            f"into {n_bands} bands of whole {block}-slot blocks"
+        )
+    if band_rows.shape != (n_bands + 1,):
+        raise ValueError(f"band_rows must have {n_bands + 1} entries, got {tuple(band_rows.shape)}")
+    if cb.dispatch_device(rows) == "cpu":
+        return _emit_torch(rows, capacity, config, block=block, pair_end=pair_end,
+                           band_rows=band_rows)
+    dev = rows.device
+    cb.require(rows, "rows", torch.float32, dev, (2 + NUM_ROWS_IN, n_bands * mc))
+    cb.require(pair_end, "pair_end", torch.int32, dev, (n_bands,))
+    cb.require(band_rows, "band_rows", torch.int32, dev, (n_bands + 1,))
+    outs = [torch.empty(capacity, dtype=torch.int32, device=dev) for _ in range(NUM_OUT)]
+    fn = cb.kernel(
+        "emit", "gsr_emit_banded",
+        [cb.P, cb.I32, cb.I64, cb.I32, cb.I32, cb.I32, cb.I32, cb.I32, cb.P, cb.P]
+        + [cb.P] * NUM_OUT + [cb.P],
+    )
+    code = fn(
+        rows.data_ptr(), n_bands, mc, cg, block,
+        int(config.depth_bits == DEPTH_SHIFT), config.tiles_x, config.sentinel_tile,
+        pair_end.data_ptr(), band_rows.data_ptr(),
+        *[o.data_ptr() for o in outs], cb.stream_handle(rows),
+    )
+    cb.check("emit", code)
+    emit_slots_banded.launches += 1
+    return tuple(outs)
+
+
+emit_slots_banded.launches = 0
 
 
 def emit_pairs(cols, incl: torch.Tensor, capacity: int, config: RenderConfig):

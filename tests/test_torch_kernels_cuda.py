@@ -1,4 +1,4 @@
-"""The port's four CUDA kernels against their plain PyTorch versions, on
+"""The port's CUDA kernels (K1-K8) against their plain PyTorch versions, on
 the card.  The kernels have no CPU mode, so every test here needs a CUDA
 device and skips without one.
 
@@ -14,10 +14,14 @@ import torch
 
 import cudagaussianrenderer_torch as pt
 from cudagaussianrenderer_torch.golden import golden_render, scene_to_numpy
-from cudagaussianrenderer_torch.ops import expand, ranges, raster
-from cudagaussianrenderer_torch.ops.binning import emit_columns
+from cudagaussianrenderer_torch.ops import banded, expand, ranges, raster
+from cudagaussianrenderer_torch.ops.binning import (
+    emit_columns, pack_columns, splat_row_packs, splat_tile_rects,
+)
 from cudagaussianrenderer_torch.ops.projection import project_splats
-from cudagaussianrenderer_torch.render import _frame_pairs, _splat_colors, camera_tensors
+from cudagaussianrenderer_torch.render import (
+    _band_rows_tensor, _frame_pairs, _splat_colors, camera_tensors,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -88,6 +92,94 @@ def test_edges_match_plain(dev, num_probes, shift, n):
     assert torch.equal(got, ranges._edges_torch(k, num_probes, shift))
 
 
+def test_segmented_edges_match_plain(dev):
+    """Keys sorted within each of 16 segments only, sentinels at the end of
+    every segment: the layout of a band-sorted list."""
+    segments, seg, num_probes, shift = 16, 20_000, 4097, 19
+    rng = np.random.default_rng(7)
+    parts = []
+    for s_ in range(segments):
+        lo, hi = s_ * 256, (s_ + 1) * 256
+        live = int(rng.integers(0, seg))
+        k = np.sort(rng.integers(lo << shift, hi << shift, live, dtype=np.uint64))
+        parts.append(np.concatenate([k, np.full(seg - live, 0xFFFFFFFF, np.uint64)]))
+    k = torch.from_numpy(np.concatenate(parts).astype(np.uint32).view(np.int32)).to(dev)
+    before = ranges.tile_edges.launches
+    got = ranges.tile_edges(k, num_probes, shift, segments=segments)
+    assert ranges.tile_edges.launches == before + 1
+    assert got.shape == (segments, num_probes)
+    assert torch.equal(got, ranges._edges_torch(k, num_probes, shift, segments=segments))
+    # A flat pass over the same keys would be wrong: they are not globally sorted.
+    assert not torch.equal(ranges.tile_edges(k, num_probes, shift),
+                           ranges._edges_torch(k, num_probes, shift))
+
+
+# (name, config, splats, seed, scene, band rows, capacity, compact capacity)
+HUGE_KW = dict(min_scale=0.3, max_scale=1.6, extent=3.0)
+BANDED_CASES = [
+    ("g4", dict(screen_size=128, sort_bands=4), 500, 2, None, [0, 2, 4, 6, 8], 8192, 2048),
+    ("g4-lex-rows", dict(screen_size=128, sort_bands=4, depth_bits=32), 500, 2, None,
+     [0, 3, 4, 6, 8], 8192, 2048),
+    ("g4-pair-saturated", dict(screen_size=128, sort_bands=4), 500, 2, None, [0, 2, 4, 6, 8],
+     1024, 2048),
+    ("g4-compact-saturated", dict(screen_size=128, sort_bands=4), 500, 2, None, [0, 2, 4, 6, 8],
+     8192, 512),
+    ("g16-huge", dict(screen_size=1024, sort_bands=16), 192, 9, HUGE_KW, None, 1048576,
+     16 * 1024),
+    ("g16-huge-pair-saturated", dict(screen_size=1024, sort_bands=16), 192, 9, HUGE_KW, None,
+     16 * 15360, 16 * 1024),
+    ("g16-huge-compact-saturated", dict(screen_size=1024, sort_bands=16), 192, 9, HUGE_KW, None,
+     1048576, 16 * 128),
+]
+
+
+@pytest.mark.parametrize("name,cfg_kw,n,seed,scene_kw,rows,capacity,ccap", BANDED_CASES,
+                         ids=[c[0] for c in BANDED_CASES])
+def test_banded_kernels_match_plain(dev, name, cfg_kw, n, seed, scene_kw, rows, capacity, ccap):
+    """K5, K6, K7 and K8, each on the arrays the banded emission hands it."""
+    cfg = pt.RenderConfig(**cfg_kw)
+    g = cfg.sort_bands
+    scene = pt.random_scene(n, seed=seed, device=dev, **(scene_kw or {})).pad_to_multiple(256)
+    cam = pt.Camera(aspect=cfg.aspect).framed(scene.bounds_min, scene.bounds_max)
+    c = camera_tensors(cam.camera_data(), dev)
+    clip = project_splats(scene.means, scene.scales, scene.quats, c, cfg,
+                          opacities=scene.opacities)
+    rects = splat_tile_rects(clip, cfg)
+    packs = splat_row_packs(clip, rects, cfg)
+    band_rows = _band_rows_tensor(rows, cfg, dev)
+    counts = banded.band_counts(rects, packs, band_rows)
+    assert torch.equal(counts.sum(0).to(torch.int32), packs.counts)
+    cols = tuple(x.contiguous() for x in pack_columns(clip, scene.colors, scene.opacities, cfg,
+                                                       rects, packs))
+    pre = banded.band_prefixes(counts, capacity // g, ccap // g)
+    assert (int(pre.band_totals.max()) > capacity // g) == ("pair-saturated" in name)
+    assert (int(pre.band_splats.max()) > ccap // g) == ("compact-saturated" in name)
+    block = banded.banded_block(capacity, ccap, g)
+    np_cols = banded.padded_width(counts.shape[1])
+    zeros = torch.zeros(counts.shape[1], device=dev)
+    counted = (banded.interleave_rows_padded, banded.stack_rows, banded.compact_rows,
+               expand.emit_slots_banded)
+    before = [fn.launches for fn in counted]
+
+    k5_in = (zeros, zeros) + cols
+    full = banded.interleave_rows_padded(k5_in, np_cols)
+    assert torch.equal(bits(full), bits(banded._interleave_rows_padded_torch(k5_in, np_cols)))
+    k6_in = banded.band_prefix_columns(pre, np_cols)
+    pfx = banded.stack_rows(k6_in)
+    assert torch.equal(bits(pfx), bits(banded._stack_rows_torch(k6_in)))
+    comp = banded.compact_rows(full, pfx, pre.pair_end, ccap)
+    assert torch.equal(bits(comp), bits(banded._compact_rows_torch(full, pfx, pre.pair_end, ccap)))
+    outs = expand.emit_slots_banded(comp, capacity, cfg, pre.pair_end, band_rows, block)
+    torch.cuda.synchronize()
+    want = expand._emit_torch(comp, capacity, cfg, block=block, pair_end=pre.pair_end,
+                              band_rows=band_rows)
+    for got_w, want_w in zip(outs, want):
+        assert torch.equal(got_w, want_w)
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [1, 1, 1, 1]
+    emitted = int((outs[expand.OUT_VALUES] >= 0).sum())
+    assert (emitted == int(pre.band_totals.sum())) == ("saturated" not in name)
+
+
 RASTER_CASES = [
     ("gaussian", dict(screen_size=128), 0),
     ("epanechnikov-background", dict(screen_size=128, falloff="epanechnikov",
@@ -129,6 +221,58 @@ def test_wrappers_reject_bad_arguments(dev):
     with pytest.raises(ValueError, match="shape"):
         raster.rasterize_tiles(pair_data, torch.zeros(3, dtype=torch.int32, device=dev),
                                torch.zeros(3, dtype=torch.int32, device=dev), cfg)
+
+
+@pytest.mark.parametrize("k,m,offset", [(1, 4096, 0), (4, 8192, 0), (8, 1001, 0), (3, 4096, 1)],
+                         ids=["k1", "k4", "k8-odd-length", "k3-unaligned"])
+def test_stack_rows_matches_plain(dev, k, m, offset):
+    """Both copy widths of K6: 16 bytes a thread when the length and every
+    pointer allow it, 4 bytes otherwise."""
+    gen = torch.Generator(device="cpu").manual_seed(k)
+    cols = [torch.randn(m + offset, generator=gen).to(dev)[offset:] for _ in range(k)]
+    assert all(c.is_contiguous() for c in cols)
+    got = banded.stack_rows(cols)
+    assert got.shape == (k, m)
+    assert torch.equal(bits(got), bits(banded._stack_rows_torch(cols)))
+    assert torch.equal(got, torch.stack(cols))
+
+
+def test_banded_wrappers_reject_bad_arguments(dev):
+    col = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        banded.stack_rows([col, torch.zeros(16, device=dev)[::2]])
+    with pytest.raises(ValueError, match="dtype"):
+        banded.interleave_rows_padded([col] * 14 + [col.double()], 4096)
+    full = torch.zeros((16, 4096), device=dev)
+    pfx = torch.zeros((3, 4 * 4096), device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        banded.compact_rows(full, pfx, torch.zeros(4, dtype=torch.int64, device=dev), 1024)
+    with pytest.raises(ValueError, match="shape"):
+        banded.compact_rows(full, pfx[:, :-1].contiguous(), torch.zeros(4, dtype=torch.int32,
+                                                                        device=dev), 1024)
+    cfg = pt.RenderConfig(screen_size=128, sort_bands=4)
+    with pytest.raises(ValueError, match="dtype"):
+        expand.emit_slots_banded(torch.zeros((16, 1024), device=dev), 4096, cfg,
+                                 torch.zeros(4, dtype=torch.int32, device=dev),
+                                 torch.zeros(5, dtype=torch.int64, device=dev), 256)
+
+
+def test_banded_frame_on_card_matches_golden_through_the_kernels(dev):
+    counted = (banded.interleave_rows_padded, banded.stack_rows, banded.compact_rows,
+               expand.emit_slots_banded, ranges.tile_edges, raster.rasterize_tiles)
+    before = [fn.launches for fn in counted]
+    scene = pt.random_scene(500, seed=2, device=dev)
+    cfg = pt.RenderConfig(screen_size=128, sort_bands=8)
+    cam = pt.Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max)
+    r = pt.Renderer(scene, cfg)
+    got = r.render(cam)
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [1] * 6
+    assert int(r.last_band_totals.sum()) == r.last_candidates
+    want = golden_render(scene_to_numpy(scene), cam.camera_data(), cfg)
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert (diff > 8).any(axis=-1).mean() <= 0.02
+    flat = pt.Renderer(scene, pt.RenderConfig(screen_size=128)).render(cam)
+    assert np.abs(flat.astype(np.int32) - got.astype(np.int32)).max() <= 2
 
 
 def test_frame_on_card_matches_golden_through_the_kernels(dev):

@@ -213,6 +213,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, cudagaussianrenderer_torch, cudagaussianrenderer_torch.golden\n"
         "import cudagaussianrenderer_torch.render, cudagaussianrenderer_torch.utils.cuda_build\n"
+        "import cudagaussianrenderer_torch.ops.banded\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
         "'cudagaussianrenderer_tpu')))\n"
         "assert not bad, bad\n"
@@ -249,11 +250,13 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     assert image.shape == (64, 64, 4) and image.dtype == np.uint8
 
 
-def test_banded_path_not_ported_yet():
+def test_banded_path_renders_on_cpu():
+    """Once the place where ``sort_bands > 1`` raised NotImplementedError;
+    the banded path is ported, so both entry points now render."""
     scene = pt.random_scene(10, seed=0, device="cpu")
     cfg = pt.RenderConfig(screen_size=128, sort_bands=4)
     cam = pt.Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max)
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        pt.Renderer(scene, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        pt.render_frame(scene, cam.camera_data(), cfg, 1024, device="cpu")
+    image = pt.Renderer(scene, cfg, device="cpu").render(cam)
+    frame, aux = pt.render_frame(scene, cam.camera_data(), cfg, 1024, device="cpu")
+    assert image.shape == tuple(frame.shape) == (128, 128, 4)
+    assert aux["band_totals"].shape == aux["band_splats"].shape == (4,)
