@@ -11,7 +11,8 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
      versions, the build time, TF32 off;
   2. kernel parity at the main path's shapes: each of K1-K4 against its
      plain PyTorch version on the same inputs (K1-K3 exact, K4 within
-     K4_LSB_BOUND output levels), with per-kernel times;
+     K4_LSB_BOUND output levels), with per-kernel times; K3 and K4 also
+     on the huge-splat 1024x1024 scene, parity and time;
   3. golden scenes: the non-banded scenes of tools/tpu_selfcheck.py
      through the port, each against the port's golden.py oracle;
   4. the main path at full width: Renderer on the 1M-splat SH-3 scene at
@@ -49,13 +50,18 @@ sys.path.insert(0, str(ROOT))
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # f32 operations per (pixel, pair) evaluation of the raster kernel's inner
-# loop, counted from csrc/raster.cu: dx, dy (2); the quadratic form (7);
-# min, exp (2); alpha, weight (2); three colour multiply-adds (6);
-# 1 - alpha and the transmittance product (2); the exp counted as one.
-K4_OPS_PER_EVAL = 21
+# loop, counted from csrc/raster.cu: dx (1); two multiply-adds of the
+# quadratic form (4); min, ex2 (2); the weight (1); three colour
+# multiply-adds (6); the transmittance multiply-add (2); and a quarter of
+# the five operations a thread shares among its four pixels (dy, nb2 * dy,
+# nc * dy, its multiply-add with dy and log2 opacity).  The ex2 is counted
+# as one.
+K4_OPS_PER_EVAL = 17.25
+# The special-function units take that ex2: 16 results a clock and SM.
+SFU_PER_CLOCK_PER_SM = 16
 # K4 against its plain version, after tiles_to_image: the two blend the
-# same pairs in the same order and differ only by contraction of
-# multiply-adds and exp rounding.
+# same pairs in the same order and differ by the kernel's ex2.approx of a
+# conic that carries log2(e), and by fused multiply-adds.
 K4_LSB_BOUND = 4
 # Main-path frame against the plain-version frame, and the golden scenes:
 # the repo's rule (tests/test_pipeline.py:20-27).
@@ -71,6 +77,18 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
+
+
+def sfu_results_per_s() -> float:
+    """ex2 results a second of the whole card at its highest SM clock."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SFU_PER_CLOCK_PER_SM * sms * mhz * 1e6
 
 
 def check(name, got, want, *, pix_tol=PIX_TOL, frac=BAD_FRAC):
@@ -116,6 +134,22 @@ def device_busy_ms(fn):
     return us / 1e3 if us > 0 else None
 
 
+def device_ms(fn, reps):
+    """Mean time of one ``fn()`` over ``reps`` calls, as text with the method
+    that gave it: "x ms of device time" from a profiler trace (the kernels
+    alone, where the host cannot enqueue as fast as the card runs them), or
+    "x ms between events" where the trace holds no device time, which
+    includes the host's enqueue gaps and is too high for a short kernel."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    busy = device_busy_ms(lambda: [fn() for _ in range(reps)])
+    if busy is None:
+        return f"{cuda_ms(fn, reps):.4f} ms between events"
+    return f"{busy / reps:.4f} ms of device time"
+
+
 def require(ok, what):
     if not ok:
         raise AssertionError(what)
@@ -147,7 +181,8 @@ def main() -> int:
     from cudagaussianrenderer_torch.ops.projection import project_splats
     from cudagaussianrenderer_torch.ops.sorting import sort_pairs
     from cudagaussianrenderer_torch.render import (
-        _band_rows_tensor, _splat_colors, camera_tensors, render_frame, round_capacity,
+        _band_rows_tensor, _frame_pairs, _splat_colors, camera_tensors, render_frame,
+        round_capacity,
     )
     from cudagaussianrenderer_torch.utils import cuda_build
 
@@ -259,6 +294,13 @@ def main() -> int:
         log(f"  K2+K3 huge splats: {htotal} candidates, capacity {hcap}: equal={ok}")
         if not ok:
             raise AssertionError("K2/K3 differ from their plain versions on huge splats")
+    # hrows and hcap are now the roomy case: a few splats of thousands of
+    # slots each, the load a per-splat emission balances worst.
+    k3_huge = device_ms(lambda: expand.emit_slots(hrows, hcap, hcfg), 20)
+    k3_huge_bound = (4 * 16 * hrows.shape[1] + 4 * 6 * hcap) / HBM_BYTES_PER_S * 1e3
+    log(f"  K3 emit on the huge-splat rows, capacity {hcap}: {k3_huge} "
+        f"(byte bound {k3_huge_bound:.4f} ms); at the main path's shapes "
+        f"{device_ms(lambda: expand.emit_slots(rows, capacity, config), 20)}")
 
     # K1 on the sorted keys of the main-path list.
     pairs = TilePairs(
@@ -296,6 +338,7 @@ def main() -> int:
     img_p = raster.tiles_to_image(tiles_p, config)
     lsb = int((img_k.int() - img_p.int()).abs().max())
     evals = stats["pairs_blended"] * config.pixels_per_tile
+    sfu_rate = sfu_results_per_s()
     kernels["raster"] = dict(
         ms=cuda_ms(lambda: raster.rasterize_tiles(pair_data, starts, counts, config), 20),
         plain_ms=plain_raster_ms,
@@ -303,14 +346,40 @@ def main() -> int:
         bytes=4 * 3 * int(incl[-1].clamp(max=capacity)) + 8 * config.total_tiles
         + 16 * config.total_tiles * config.pixels_per_tile,
         ops=K4_OPS_PER_EVAL * evals,
+        sfu_ms=evals / sfu_rate * 1e3,
         max_abs_err=float((tiles - tiles_p).abs().max()),
     )
     log(f"  K4 raster {config.total_tiles} tiles: max diff {lsb} LSB (bound "
         f"{K4_LSB_BOUND}), {stats['pairs_blended']} pairs blended before exit "
         f"= {evals} pixel evaluations")
+    log(f"  K4 floors: f32 {K4_OPS_PER_EVAL * evals / F32_OPS_PER_S * 1e3:.4f} ms "
+        f"({K4_OPS_PER_EVAL} operations an evaluation at {F32_OPS_PER_S / 1e12:.0f} TFLOP/s), "
+        f"ex2 {kernels['raster']['sfu_ms']:.4f} ms ({sfu_rate / 1e12:.3f} T results/s), "
+        f"bytes {kernels['raster']['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms")
     if lsb > K4_LSB_BOUND:
         raise AssertionError(f"K4 raster differs by {lsb} LSB from its plain version")
     plain_frame0 = img_p.cpu().numpy()
+
+    # K4 on the huge-splat scene: few tiles are empty, every list is a batch
+    # or two deep and most of its pairs are blended.
+    _, hattrs, hstarts, hcounts = _frame_pairs(hscene, hcam, hcfg, hcap)
+    hpair_data = raster.pack_pair_data(hattrs, hcfg.raster_chunk)
+    htiles = raster.rasterize_tiles(hpair_data, hstarts, hcounts, hcfg)
+    hstats = {}
+    htiles_p = raster._raster_torch(hpair_data, hstarts, hcounts, hcfg, hcfg.total_tiles, 0, hstats)
+    hlsb = int((raster.tiles_to_image(htiles, hcfg).int()
+                - raster.tiles_to_image(htiles_p, hcfg).int()).abs().max())
+    hevals = hstats["pairs_blended"] * hcfg.pixels_per_tile
+    k4_huge = device_ms(
+        lambda: raster.rasterize_tiles(hpair_data, hstarts, hcounts, hcfg), 20)
+    log(f"  K4 raster on the huge-splat scene: max diff {hlsb} LSB, "
+        f"{hstats['pairs_blended']} of {int(hcounts.sum())} pairs blended (longest list "
+        f"{int(hcounts.max())}) = {hevals} pixel evaluations, {k4_huge} (floors: f32 "
+        f"{K4_OPS_PER_EVAL * hevals / F32_OPS_PER_S * 1e3:.4f}, ex2 {hevals / sfu_rate * 1e3:.4f} ms); "
+        f"at the main path's shapes "
+        f"{device_ms(lambda: raster.rasterize_tiles(pair_data, starts, counts, config), 20)}")
+    if hlsb > K4_LSB_BOUND:
+        raise AssertionError(f"K4 raster differs by {hlsb} LSB on the huge-splat scene")
 
     # ---- 3. golden scenes --------------------------------------------------
     # The non-banded cases of tools/tpu_selfcheck.py:52-106; its two banded
@@ -489,10 +558,12 @@ def main() -> int:
                 b["comp"], cap_, bcfg, block=b["block"], pair_end=pre.pair_end,
                 band_rows=rows_), 2),
             library_ms=None,
-            # The two prefix rows of every compact column, the 14 attribute
-            # rows of the kept ones (a column that owns no slot is done
-            # after its prefixes), and the six [capacity] words.
-            bytes=4 * 2 * ccap_ + 4 * 14 * kept + 4 * 6 * cap_,
+            # All 16 rows of the kept compact columns and the six [capacity]
+            # words.  The fill columns behind a band's kept ones own no
+            # slot and are never read: a block searches its band's prefix
+            # row with a few probes and walks only the columns that cover
+            # its slots.
+            bytes=4 * 16 * kept + 4 * 6 * cap_,
             max_abs_err=max(float((as_u32_i64(x) - as_u32_i64(y)).abs().max())
                             for x, y in zip(b["outs"], b["plain"]["k8"])),
         )
@@ -694,7 +765,8 @@ def main() -> int:
     for key, (source, wrapper, counts_of, replaces) in names.items():
         k = kernels[key]
         bytes_ms = k["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = k.get("ops", 0) / F32_OPS_PER_S * 1e3
+        # K4 has two operation floors: f32 and the special-function units.
+        ops_ms = max(k.get("ops", 0) / F32_OPS_PER_S * 1e3, k.get("sfu_ms", 0.0))
         line.append(dict(
             name=key,
             route="cuda",

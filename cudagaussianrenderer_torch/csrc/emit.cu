@@ -3,14 +3,31 @@
 //
 // Replaces ops/expand.py:_emit_kernel of the JAX package (with
 // _emit_block, _emit_payload and _store_sentinels; launched at
-// expand.py:754 there).  A TPU cannot scatter, so that kernel recovers the
-// owner of every slot with one-hot matmuls over DMA'd splat windows, fed
-// by per-block first owners from the histogram kernel.  A GPU can
-// scatter: here splat i (one thread) writes its own slots
-// [excl_i, min(incl_i, capacity)) directly, walking its 8 packed
-// (dx, w) row runs and then the full-rect fallthrough rows, so no owner
-// search and no block-start table exist.  A second, slot-parallel pass
-// fills the slots past the candidate total (_store_sentinels).
+// expand.py:754 there).  That kernel gives each grid step one block of
+// slots and recovers every slot's owner with one-hot matmuls over DMA'd
+// splat windows, fed by per-block first owners from the histogram kernel.
+// This one keeps the slot-parallel shape and drops the rest: one launch,
+// one thread block per emit block of slots (the JAX block: 1024, halved
+// while it does not divide the capacity), neighbouring threads on
+// neighbouring slots.
+//   * The block finds the first column whose inclusive prefix exceeds its
+//     first slot with a cooperative 256-ary search of the prefix row:
+//     three rounds of one load and one counting barrier at a million
+//     columns, no block-start table.
+//   * From there it walks the columns 256 at a time.  Thread t reads
+//     column i0 + t's prefixes, coalesced; only a column that owns a slot
+//     of this block has its other 14 rows read and its payload packed,
+//     once, into shared memory.  A batch that owns nothing (a run of
+//     culled splats) is skipped by searching again.
+//   * Every slot the batch covers is then written by its own thread: the
+//     owner is the first staged column with incl > j (8 steps of binary
+//     search in shared memory), the ordinal o = j - excl_owner, the tile
+//     comes from the owner's 8 packed (dx, w) row runs or the full-rect
+//     fallthrough, in the integer arithmetic of the plain version.  A
+//     warp's store covers 128 contiguous bytes of each output array, and
+//     a splat of any size is spread over as many threads and blocks as it
+//     has slots.
+//   * Slots past the candidate total are filled by the same block.
 //
 // The six outputs equal the JAX kernel's slot for slot:
 //   * keys tile << 19 | depth19 (or tile, depth24 << 8), value = splat id;
@@ -20,28 +37,32 @@
 //   * the mf12 rounding is integer math on the f32 bits;
 //   * the fallthrough decode divides exact small integers with integer
 //     '/' and '%' (the JAX kernel's f32 divide needed a one-step fix);
-//   * past the total, slots in a 1024-slot block (the JAX block, halved
-//     while it does not divide the capacity) that still holds pairs get
-//     the packing of an all-zero row, later blocks zeros.
+//   * past the total, slots in a block that still holds pairs get the
+//     packing of an all-zero row, later blocks zeros.
 //
 // Bound on this card: bytes.  16 rows of 4 B are read per splat (64 MB
-// at 1M splats) and six 4 B words written per slot (~91 MB at the main
-// path's 3.8M slots): ~46 us at 3.35 TB/s.  One thread per splat keeps
-// the row reads coalesced; a splat's slots are contiguous, so a warp's
-// stores land in a few contiguous runs.  Work per thread follows the
-// splat's pair count (~4 on the main path), so warps stay balanced there;
-// a scene of huge splats makes the widest splat in a warp set its time.
+// at 1M splats) and six 4 B words written per slot (~94 MB at the main
+// path's 3.9M slots): ~47 us at 3.35 TB/s.  Reads and writes are both
+// coalesced; what the design pays beyond the bytes is latency, some eight
+// dependent loads in a block's life (total, three search rounds, two
+// batches of prefixes and rows), which the resident blocks of an SM hide
+// from one another.
 //
 // K8, the banded mode (the JAX kernel with bpb > 0, launched at
 // ops/banded.py:517 there): the rows are the band-compacted array of K7,
-// column c belongs to band g = c / MC, and its prefix rows are already
-// offset into band g's slot segment [g * CG, (g + 1) * CG).  Two things
-// change in the walk: a packed run of row r counts only if the tile row
+// band g owns the columns [g * MC, (g + 1) * MC) and the slot segment
+// [g * CG, (g + 1) * CG), and its prefix rows are already offset into
+// that segment.  Emit blocks divide CG, so a block lies in one band: it
+// searches and walks that band's columns only, its total is the band's
+// pair end, and the sentinel layout applies per band.  Two things change
+// in the tile decode: a packed run of row r counts only if the tile row
 // y0 + r lies in the band's rows [lo_g, hi_g), and the full-rect
 // fallthrough starts at the first in-band row, max(base_row, lo_g - y0).
-// Past band g's pair end the slots of its segment carry sentinels, with
-// the JAX block layout applied per band.  Same bound: 16 rows of 4 B per
-// compact column in, six words per slot out.
+// Same bound, bytes: 16 rows of 4 B per kept compact column in (the fill
+// columns behind a band's kept ones own no slot and are never read), six
+// words per slot out.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -119,118 +140,175 @@ struct Bands {
   const int* band_rows;
 };
 
-template <bool kBanded>
-__global__ void emit_kernel(const float* __restrict__ rows, long long np,
-                            int capacity, int packed, int tiles_x, Bands bands,
-                            Outs out) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (i >= np) return;
-  const int excl = static_cast<int>(rows[kRowExcl * np + i]);
-  const int end = min(static_cast<int>(rows[kRowIncl * np + i]), capacity);
-  if (excl >= end) return;
-  int band_lo = 0, band_hi = 0;
-  if (kBanded) {
-    const int g = static_cast<int>(
-        min(i / bands.mc, static_cast<long long>(bands.n_bands - 1)));
-    band_lo = bands.band_rows[g];
-    band_hi = bands.band_rows[g + 1];
-  }
+constexpr int kThreads = 256;  // threads a block = columns staged a batch
+// Blocks an SM should hold (40 registers a thread): a block's life is a
+// chain of dependent loads, and its neighbours' stores fill the waits.
+constexpr int kBlocksPerSm = 6;
 
-  const auto row = [&](int r) { return rows[r * np + i]; };
-  const uint32_t geom = static_cast<uint32_t>(row(kRowGeom));
-  const int w_raw = static_cast<int>(geom & 255u);
-  const int y0 = static_cast<int>((geom >> 8) & 255u);
-  const int x0 = static_cast<int>(geom >> 16);
-  const uint32_t q = static_cast<uint32_t>(row(kRowDepth));
-  const int value = static_cast<int>(row(kRowIdx));
-  const Payload pay = pack_payload(row(kRowCx), row(kRowCy), row(kRowCa),
-                                   row(kRowCb), row(kRowCc), row(kRowRgb),
-                                   row(kRowAlpha));
-  uint32_t packs[4];
-#pragma unroll
-  for (int p = 0; p < 4; ++p) packs[p] = static_cast<uint32_t>(row(kRowPack0 + p));
-
-  int j = excl;
-  const auto emit = [&](int tile) {
-    const uint32_t t = static_cast<uint32_t>(tile);
-    if (packed) {
-      out.key0[j] = (t << kDepthShift) | q;
-      out.key1[j] = 0u;
-    } else {
-      out.key0[j] = t;
-      out.key1[j] = q << 8;
-    }
-    out.values[j] = value;
-    out.cxcy[j] = pay.cxcy;
-    out.conic[j] = pay.conic;
-    out.rgba[j] = pay.rgba;
-    ++j;
-  };
-
-  // The 8 packed row runs, in row order: ordinal o of row r sits at tile
-  // (x0 + dx_r + o - cum_r, y0 + r).
-  for (int r = 0; r < 8 && j < end; ++r) {
-    const uint32_t half = (r & 1) ? (packs[r >> 1] & 4095u) : (packs[r >> 1] >> 12);
-    const int dx = static_cast<int>(half >> 6);
-    int w = static_cast<int>(half & 63u);
-    if (kBanded && (y0 + r < band_lo || y0 + r >= band_hi)) w = 0;
-    const int base = (y0 + r) * tiles_x + x0 + dx;
-    for (int x = 0; x < w && j < end; ++x) emit(base + x);
-  }
-  // Full-rect fallthrough: rows 8+ of tall splats, or the whole rect of
-  // splats wider than 63 tiles (whose runs are all empty).
-  const int wf = max(w_raw, 1);
-  int base_row = w_raw > 63 ? 0 : 8;
-  if (kBanded) base_row = max(base_row, band_lo - y0);
-  for (int extra = 0; j < end; ++extra) {
-    const int ly = extra / wf;
-    const int lx = extra % wf;
-    emit((y0 + base_row + ly) * tiles_x + x0 + lx);
+// The first column in [lo, hi) whose inclusive prefix exceeds slot j; the
+// caller guarantees there is one.  Called by the whole block: every round
+// probes kThreads evenly spaced columns and counts those still at or below
+// j, which narrows the range kThreads-fold.
+__device__ long long first_owner(const float* __restrict__ incl_row,
+                                 long long lo, long long hi, int j) {
+  for (;;) {
+    const long long step = (hi - lo + kThreads - 1) / kThreads;
+    const long long p = lo + threadIdx.x * step;
+    const int below = p < hi && static_cast<int>(incl_row[p]) <= j;
+    const int n_below = __syncthreads_count(below);
+    if (step <= 1) return lo + n_below;
+    // incl[lo + (n_below - 1) * step] <= j < incl[lo + n_below * step].
+    hi = min(hi, lo + n_below * step + 1);
+    if (n_below > 0) lo += (n_below - 1) * step + 1;
   }
 }
 
 template <bool kBanded>
-__global__ void sentinel_kernel(const float* __restrict__ rows, long long np,
-                                int capacity, int block, int packed,
-                                uint32_t sentinel_tile, Bands bands, Outs out) {
-  const long long j = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (j >= capacity) return;
-  int total;
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    emit_kernel(const float* __restrict__ rows, long long np, int capacity,
+                int block, int packed, int tiles_x, uint32_t sentinel_tile,
+                Bands bands, Outs out) {
+  // One batch of owner columns: prefixes, rect, splat id, the four run
+  // words, and {cxcy, conic, rgba, depth}.
+  __shared__ int s_incl[kThreads], s_excl[kThreads], s_value[kThreads];
+  __shared__ uint32_t s_geom[kThreads];
+  __shared__ uint4 s_runs[kThreads], s_words[kThreads];
+
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.x * block;
+  const int j1 = j0 + block;
+  const float* __restrict__ incl_row = rows + kRowIncl * np;
+  long long lo_col = 0, hi_col = np;
+  int total, band_lo = 0, band_hi = 0;
   if (kBanded) {
-    // The slot's band ends at its own pair end; emit blocks divide CG, so
-    // the block layout below never crosses into the next band.
-    const int g = min(static_cast<int>(j / bands.cg), bands.n_bands - 1);
+    const int g = min(j0 / bands.cg, bands.n_bands - 1);
+    lo_col = g * bands.mc;
+    hi_col = lo_col + bands.mc;
     total = min(bands.pair_end[g], capacity);
+    band_lo = bands.band_rows[g];
+    band_hi = bands.band_rows[g + 1];
   } else {
     // The pad block's inclusive prefix is min(total, capacity + 1).
-    total = min(static_cast<int>(rows[kRowIncl * np + np - 1]), capacity);
+    total = min(static_cast<int>(incl_row[np - 1]), capacity);
   }
-  if (j < total) return;
-  const long long live_end =
-      min(static_cast<long long>(capacity),
-          (static_cast<long long>(total) + block - 1) / block * block);
-  out.key0[j] = packed ? kSentinel : sentinel_tile;
-  out.key1[j] = packed ? 0u : kSentinel;
-  out.values[j] = -1;
-  Payload pay = {0u, 0u, 0u};
-  if (j < live_end) pay = pack_payload(0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f);
-  out.cxcy[j] = pay.cxcy;
-  out.conic[j] = pay.conic;
-  out.rgba[j] = pay.rgba;
+  const int live = min(j1, total);  // slots [j0, live) hold pairs
+
+  const auto store = [&](int j, uint32_t key0, uint32_t key1, int value,
+                         uint32_t cxcy, uint32_t conic, uint32_t rgba) {
+    out.key0[j] = key0;
+    out.key1[j] = key1;
+    out.values[j] = value;
+    out.cxcy[j] = cxcy;
+    out.conic[j] = conic;
+    out.rgba[j] = rgba;
+  };
+
+  // Slots [next, live) still wait for their owners; the columns before i0
+  // own none of them.
+  int next = j0;
+  long long i0 = 0;
+  if (next < live) i0 = first_owner(incl_row, lo_col, hi_col, next);
+  while (next < live) {
+    // The batch [i0, i0 + kThreads) covers the slots below its last
+    // inclusive prefix; past the last column nothing is left to cover.
+    const int covered = i0 + kThreads <= hi_col
+                            ? static_cast<int>(incl_row[i0 + kThreads - 1])
+                            : INT_MAX;
+    if (covered <= next) {
+      i0 = first_owner(incl_row, i0 + kThreads, hi_col, next);
+      continue;
+    }
+    const int upto = min(covered, live);
+    const long long i = i0 + tid;
+    const int incl = i < hi_col ? static_cast<int>(incl_row[i]) : INT_MAX;
+    __syncthreads();  // the batch before is read out
+    s_incl[tid] = incl;
+    if (i < hi_col) {
+      const auto row = [&](int r) { return rows[r * np + i]; };
+      const int excl = static_cast<int>(row(kRowExcl));
+      if (max(excl, next) < min(incl, upto)) {
+        s_excl[tid] = excl;
+        s_geom[tid] = static_cast<uint32_t>(row(kRowGeom));
+        s_value[tid] = static_cast<int>(row(kRowIdx));
+        s_runs[tid] = make_uint4(static_cast<uint32_t>(row(kRowPack0)),
+                                 static_cast<uint32_t>(row(kRowPack0 + 1)),
+                                 static_cast<uint32_t>(row(kRowPack0 + 2)),
+                                 static_cast<uint32_t>(row(kRowPack0 + 3)));
+        const Payload pay = pack_payload(row(kRowCx), row(kRowCy), row(kRowCa),
+                                         row(kRowCb), row(kRowCc), row(kRowRgb),
+                                         row(kRowAlpha));
+        s_words[tid] = make_uint4(pay.cxcy, pay.conic, pay.rgba,
+                                  static_cast<uint32_t>(row(kRowDepth)));
+      }
+    }
+    __syncthreads();
+
+    // This thread's slots are j0 + tid + m * kThreads; start at the first
+    // one not yet written.
+    const int skip = max(next - j0 - tid + kThreads - 1, 0) / kThreads;
+    for (int j = j0 + tid + skip * kThreads; j < upto; j += kThreads) {
+      // Owner: the first staged column with incl > j.
+      int k = 0;
+#pragma unroll
+      for (int half = kThreads / 2; half > 0; half >>= 1)
+        if (s_incl[k + half - 1] <= j) k += half;
+      const int o = j - s_excl[k];
+      const uint32_t geom = s_geom[k];
+      const int w_raw = static_cast<int>(geom & 255u);
+      const int y0 = static_cast<int>((geom >> 8) & 255u);
+      const int x0 = static_cast<int>(geom >> 16);
+      const uint4 runs = s_runs[k];
+      const uint32_t run_words[4] = {runs.x, runs.y, runs.z, runs.w};
+      // The 8 packed row runs, in row order: ordinal o of row r sits at
+      // tile (x0 + dx_r + o - cum_r, y0 + r).
+      int tile = -1;
+      int cum = 0;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const uint32_t run =
+            (r & 1) ? (run_words[r >> 1] & 4095u) : (run_words[r >> 1] >> 12);
+        int w = static_cast<int>(run & 63u);
+        if (kBanded && (y0 + r < band_lo || y0 + r >= band_hi)) w = 0;
+        if (tile < 0 && o < cum + w)
+          tile = (y0 + r) * tiles_x + x0 + static_cast<int>(run >> 6) + (o - cum);
+        cum += w;
+      }
+      if (tile < 0) {
+        // Full-rect fallthrough: rows 8+ of tall splats, or the whole rect
+        // of splats wider than 63 tiles (whose runs are all empty).
+        const int wf = max(w_raw, 1);
+        int base_row = w_raw > 63 ? 0 : 8;
+        if (kBanded) base_row = max(base_row, band_lo - y0);
+        const int extra = o - cum;
+        tile = (y0 + base_row + extra / wf) * tiles_x + x0 + extra % wf;
+      }
+      const uint4 words = s_words[k];
+      const uint32_t t = static_cast<uint32_t>(tile);
+      store(j, packed ? (t << kDepthShift) | words.w : t,
+            packed ? 0u : words.w << 8, s_value[k], words.x, words.y, words.z);
+    }
+    next = upto;
+    i0 += kThreads;
+  }
+
+  // Past the total: sentinel keys; a block that still holds pairs packs an
+  // all-zero row, later blocks carry zeros.
+  Payload fill = {0u, 0u, 0u};
+  if (j0 < total) fill = pack_payload(0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f);
+  for (int j = max(live, j0) + tid; j < j1; j += kThreads)
+    store(j, packed ? kSentinel : sentinel_tile, packed ? 0u : kSentinel, -1,
+          fill.cxcy, fill.conic, fill.rgba);
 }
 
 template <bool kBanded>
 int launch_emit(const float* rows, long long np, int capacity, int block,
                 int packed, int tiles_x, int sentinel_tile, Bands bands,
                 Outs out, cudaStream_t s) {
-  constexpr int kThreads = 256;
-  emit_kernel<kBanded><<<gsr::blocks_for(np, kThreads), kThreads, 0, s>>>(
-      rows, np, capacity, packed, tiles_x, bands, out);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sentinel_kernel<kBanded><<<gsr::blocks_for(capacity, kThreads), kThreads, 0, s>>>(
-      rows, np, capacity, block, packed, static_cast<uint32_t>(sentinel_tile),
-      bands, out);
+  if (block <= 0 || capacity % block) return static_cast<int>(cudaErrorInvalidValue);
+  if (capacity == 0) return 0;
+  emit_kernel<kBanded><<<capacity / block, kThreads, 0, s>>>(
+      rows, np, capacity, block, packed, tiles_x,
+      static_cast<uint32_t>(sentinel_tile), bands, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,10 +6,13 @@ Slot j of the fixed-capacity pair list belongs to the splat whose
 that splat's sort key (tile, depth), its index, and the three packed
 raster attribute words.
 
-The JAX package (ops/expand.py there) selects the owner of every slot
-with one-hot matmuls over DMA'd splat windows, because a TPU cannot
-scatter.  A GPU can, so the port turns the problem around: each splat
-writes its own slot range (csrc/emit.cu).  The two kernels here:
+The JAX package (ops/expand.py there) gives each grid step a block of
+slots and selects every slot's owner with one-hot matmuls over DMA'd splat
+windows, fed by a table of per-block first owners.  The port's kernel
+(csrc/emit.cu) is slot-parallel too, one thread block per emit block of
+slots, but finds its first owner itself with a cooperative search of the
+prefix row, stages the owners' rows once in shared memory and lets every
+thread write its own slot.  The kernels here:
 
   * K2 ``interleave_rows`` (csrc/interleave.cu) builds the [16, NP] f32
     row array the JAX package's ``_interleave_rows`` builds (clamped
@@ -156,7 +159,7 @@ def _emit_torch(rows: torch.Tensor, capacity: int, config: RenderConfig, *, bloc
     """Plain PyTorch version of K3 (see emit_slots) and, with ``pair_end``
     and ``band_rows``, of K8 (see emit_slots_banded): one lane per SLOT,
     each finding its owner by binary search over the inclusive prefix
-    row, the decomposition of the JAX kernel rather than the CUDA one."""
+    row, the decomposition of both the JAX kernel and the CUDA one."""
     dev = rows.device
     np_cols = rows.shape[1]
     banded = pair_end is not None
@@ -349,9 +352,10 @@ def emit_pairs(cols, incl: torch.Tensor, capacity: int, config: RenderConfig):
     prefix sum of candidate counts.  Returns six flat [capacity] int32
     words in OUT_* order.
 
-    Unlike the JAX package, the port needs no per-block first-owner
-    search (the JAX package's second use of its histogram kernel,
-    ops/expand.py:711-717 there): each splat writes its own slots.
+    Unlike the JAX package, the port builds no table of per-block first
+    owners (the JAX package's second use of its histogram kernel,
+    ops/expand.py:711-717 there): each block of K3 searches the prefix row
+    for its own.
     """
     emit_block(capacity)
     cols = tuple(c.to(torch.float32).contiguous() for c in cols)

@@ -7,9 +7,11 @@ GaussianRender.cu:908-1034).  The port's kernel (csrc/raster.cu) keeps
 that shape, fed by the sorted, packed attribute words the sort carried
 with the keys (no gather):
 
-  * one block per tile, one thread per pixel; the block stages up to 256
-    pairs of the tile's [start, start + count) segment in shared memory,
-    decoded once per pair, and every pixel blends them in order;
+  * one block per tile, four neighbouring pixels of a tile row per thread
+    (one where 4 does not divide the tile edge); the block stages the
+    tile's [start, start + count) segment 128 pairs at a time in shared
+    memory, decoded once per pair, the next batch in flight while this one
+    blends, and every pixel blends them in order;
   * after each whole ``raster_chunk`` of the sorted list (chunks aligned
     to multiples of raster_chunk, as the JAX kernel streams them) the
     block votes, and stops once every pixel's transmittance is
@@ -20,8 +22,9 @@ with the keys (no gather):
 
 The JAX kernel blends a chunk at a time with a log-domain scan of one
 bf16 limb (ops/raster.py:65-81 there); this kernel multiplies the
-transmittance pair by pair in f32.  The frames differ by the scan's
-rounding, which the JAX package bounds at 4 output LSB.
+transmittance pair by pair in f32, with alpha = 2^min(m, log2 opacity)
+from one ex2.approx of a conic that carries log2(e).  The frames differ by
+the scan's rounding, which the JAX package bounds at 4 output LSB.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ ROW_RGBA = 2                # 0xRRGGBBAA
 PAIR_ROWS = 4
 
 CENTER_INV_SCALE = 2.0 / 65535.0
-# Largest tile edge the kernel takes: one thread per pixel, <= 1024 threads.
+# Largest tile edge the kernel takes (1024 pixels a block).
 MAX_TILE_SIZE = 32
 
 

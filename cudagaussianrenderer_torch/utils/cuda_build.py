@@ -56,7 +56,8 @@ def nvcc_path() -> str:
     return found
 
 
-def _flags(name: str):
+def flags(name: str):
+    """The nvcc flags of kernel source ``name``."""
     return BASE_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
@@ -64,7 +65,7 @@ def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
     for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.read_bytes())
-    h.update(" ".join(_flags(name)).encode())
+    h.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -85,7 +86,7 @@ def build_all() -> Dict[str, dict]:
             result[name] = {"seconds": 0.0, "log": "cached"}
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp,

@@ -23,12 +23,17 @@ from cudagaussianrenderer_torch.render import (
     _band_rows_tensor, _frame_pairs, _splat_colors, camera_tensors,
 )
 
+from torch_port_cases import cull_run, widen
+
 pytestmark = pytest.mark.cuda
 
 # K4 against its plain version, after tiles_to_image: the same pairs blended
-# in the same order; nvcc may contract multiply-adds and its expf rounds
-# differently from PyTorch's.
+# in the same order; the kernel folds log2(e) into the conic and takes
+# ex2.approx where PyTorch takes exp, and fuses multiply-adds.
 K4_LSB_BOUND = 4
+
+
+HUGE_KW = dict(min_scale=0.3, max_scale=1.6, extent=3.0)
 
 
 @pytest.fixture
@@ -42,33 +47,45 @@ def bits(t):
     return t.contiguous().view(torch.int32) if t.dtype == torch.float32 else t
 
 
-def stage_c_inputs(dev, n, seed, cfg, scene_kw=None):
+def stage_c_inputs(dev, n, seed, cfg, scene_kw=None, edit=None):
     scene = pt.random_scene(n, seed=seed, device=dev, **(scene_kw or {})).pad_to_multiple(256)
     cam = pt.Camera(aspect=cfg.aspect).framed(scene.bounds_min, scene.bounds_max)
     c = camera_tensors(cam.camera_data(), dev)
     clip = project_splats(scene.means, scene.scales, scene.quats, c, cfg,
                           opacities=scene.opacities)
+    if edit is not None:
+        fields = {f: getattr(clip, f).clone() for f in clip._fields}
+        edit(fields)
+        clip = clip._replace(**fields)
     cols, incl = emit_columns(clip, _splat_colors(scene, c), scene.opacities, cfg)
     return tuple(x.contiguous() for x in cols), incl
 
 
 EMIT_CASES = [
-    ("default", dict(screen_size=128), 500, 2, None, 4096),
-    ("truncated-lex", dict(screen_size=128, depth_bits=32), 500, 2, None, 1024),
+    ("default", dict(screen_size=128), 500, 2, None, 4096, None),
+    ("truncated-lex", dict(screen_size=128, depth_bits=32), 500, 2, None, 1024, None),
     ("runs-off", dict(screen_size=128, center_sampled_runs=False,
-                      opacity_aware_extents=False), 500, 2, None, 8192),
-    ("huge-below", dict(screen_size=1024), 192, 9,
-     dict(min_scale=0.3, max_scale=1.6, extent=3.0), 262144),
-    ("huge-above", dict(screen_size=1024), 192, 9,
-     dict(min_scale=0.3, max_scale=1.6, extent=3.0), 524288),
+                      opacity_aware_extents=False), 500, 2, None, 8192, None),
+    ("huge-below", dict(screen_size=1024), 192, 9, HUGE_KW, 262144, None),
+    ("huge-above", dict(screen_size=1024), 192, 9, HUGE_KW, 524288, None),
+    # The cases of tests/test_torch_emit.py that a slot-parallel emission
+    # can get wrong: one splat over many 128-slot blocks, a long run of
+    # columns that own nothing, the capacity cutting a splat in a packed
+    # run and in its fallthrough rows, splats wider than 63 tiles among
+    # ordinary ones.
+    ("splat-spans-blocks", dict(screen_size=1024), 12, 9, HUGE_KW, 32896, None),
+    ("culled-run", dict(screen_size=128), 3000, 5, None, 4096, cull_run(200, 2900)),
+    ("cut-in-packed-run", dict(screen_size=128), 500, 2, None, 640, None),
+    ("cut-in-fallthrough", dict(screen_size=1024), 12, 9, HUGE_KW, 8192, None),
+    ("wide-beside-ordinary", dict(screen_size=1024), 300, 3, None, 43008, widen(150, 151)),
 ]
 
 
-@pytest.mark.parametrize("name,cfg_kw,n,seed,scene_kw,capacity", EMIT_CASES,
+@pytest.mark.parametrize("name,cfg_kw,n,seed,scene_kw,capacity,edit", EMIT_CASES,
                          ids=[c[0] for c in EMIT_CASES])
-def test_interleave_and_emit_match_plain(dev, name, cfg_kw, n, seed, scene_kw, capacity):
+def test_interleave_and_emit_match_plain(dev, name, cfg_kw, n, seed, scene_kw, capacity, edit):
     cfg = pt.RenderConfig(**cfg_kw)
-    cols, incl = stage_c_inputs(dev, n, seed, cfg, scene_kw)
+    cols, incl = stage_c_inputs(dev, n, seed, cfg, scene_kw, edit)
     before = (expand.interleave_rows.launches, expand.emit_slots.launches)
     rows = expand.interleave_rows(incl, cols, capacity + 1)
     torch.testing.assert_close(bits(rows), bits(expand._interleave_rows_torch(incl, cols,
@@ -115,7 +132,6 @@ def test_segmented_edges_match_plain(dev):
 
 
 # (name, config, splats, seed, scene, band rows, capacity, compact capacity)
-HUGE_KW = dict(min_scale=0.3, max_scale=1.6, extent=3.0)
 BANDED_CASES = [
     ("g4", dict(screen_size=128, sort_bands=4), 500, 2, None, [0, 2, 4, 6, 8], 8192, 2048),
     ("g4-lex-rows", dict(screen_size=128, sort_bands=4, depth_bits=32), 500, 2, None,
@@ -180,32 +196,50 @@ def test_banded_kernels_match_plain(dev, name, cfg_kw, n, seed, scene_kw, rows, 
     assert (emitted == int(pre.band_totals.sum())) == ("saturated" not in name)
 
 
+# (name, config, tile-row offset, (splats, seed, scene), capacity)
+SMALL = (500, 2, None)
 RASTER_CASES = [
-    ("gaussian", dict(screen_size=128), 0),
+    ("gaussian", dict(screen_size=128), 0, SMALL, 8192),
     ("epanechnikov-background", dict(screen_size=128, falloff="epanechnikov",
-                                     background=(1.0, 1.0, 1.0)), 0),
-    ("row-offset", dict(screen_size=128, background=(0.2, 0.4, 0.6)), 3),
-    ("chunk256-rect", dict(screen_size=192, screen_height=128, raster_chunk=256), 0),
+                                     background=(1.0, 1.0, 1.0)), 0, SMALL, 8192),
+    ("row-offset", dict(screen_size=128, background=(0.2, 0.4, 0.6)), 3, SMALL, 8192),
+    ("chunk256-rect", dict(screen_size=192, screen_height=128, raster_chunk=256), 0, SMALL, 8192),
+    # 1024 pixels a tile, and 64: fewer pixels than a warp has threads.
+    ("tile32", dict(screen_size=128, tile_size=32), 0, SMALL, 8192),
+    ("tile8-epanechnikov", dict(screen_size=128, tile_size=8, falloff="epanechnikov"), 0, SMALL,
+     32768),
+    ("tile8", dict(screen_size=128, tile_size=8), 0, SMALL, 32768),
+    # Lists several batches deep, where the vote ends tiles mid-list.
+    ("deep-list", dict(screen_size=1024), 0, (192, 9, HUGE_KW), 524288),
+    ("deep-list-chunk256", dict(screen_size=1024, raster_chunk=256, background=(0.0, 0.0, 0.0)),
+     0, (768, 9, HUGE_KW), 2097152),
 ]
 
 
-@pytest.mark.parametrize("name,cfg_kw,row_offset", RASTER_CASES, ids=[c[0] for c in RASTER_CASES])
-def test_raster_matches_plain(dev, name, cfg_kw, row_offset):
+@pytest.mark.parametrize("name,cfg_kw,row_offset,scene_args,capacity", RASTER_CASES,
+                         ids=[c[0] for c in RASTER_CASES])
+def test_raster_matches_plain(dev, name, cfg_kw, row_offset, scene_args, capacity):
     cfg = pt.RenderConfig(**cfg_kw)
-    scene = pt.random_scene(500, seed=2, device=dev).pad_to_multiple(256)
+    n, seed, scene_kw = scene_args
+    scene = pt.random_scene(n, seed=seed, device=dev, **(scene_kw or {})).pad_to_multiple(256)
     cam = pt.Camera(aspect=cfg.aspect).framed(scene.bounds_min, scene.bounds_max)
     _, attrs, starts, counts = _frame_pairs(scene, camera_tensors(cam.camera_data(), dev),
-                                            cfg, 8192)
+                                            cfg, capacity)
     pair_data = raster.pack_pair_data(attrs, cfg.raster_chunk)
     rows = 2 if row_offset else cfg.tiles_y
     sl = slice(row_offset * cfg.tiles_x, (row_offset + rows) * cfg.tiles_x)
     args = (pair_data, starts[sl].contiguous(), counts[sl].contiguous(), cfg)
+    before = raster.rasterize_tiles.launches
     got = raster.rasterize_tiles(*args, num_tiles=rows * cfg.tiles_x, tile_row_offset=row_offset)
-    want = raster._raster_torch(*args, rows * cfg.tiles_x, row_offset)
+    assert raster.rasterize_tiles.launches == before + 1
+    stats = {}
+    want = raster._raster_torch(*args, rows * cfg.tiles_x, row_offset, stats)
     a = raster.tiles_to_image(got, cfg).int()
     b = raster.tiles_to_image(want, cfg).int()
     assert int((a - b).abs().max()) <= K4_LSB_BOUND
     assert int(b[..., :3].max()) > 0
+    if name.startswith("deep-list"):
+        assert stats["pairs_blended"] < int(counts[sl].sum())
 
 
 def test_wrappers_reject_bad_arguments(dev):
