@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
-"""Time the emit (K3) and raster (K4) kernels alone on one GPU, and the
-design variants that were tried for them.
+"""Time the emit (K3), raster (K4), stack (K6) and compact (K7) kernels
+alone on one GPU, and the design variants that were tried for them.
 
 Run from the root of a checkout on a machine with one NVIDIA card:
 
     python3 chip_kernel_variants.py              # the kernels as committed
     python3 chip_kernel_variants.py --variants   # and the variants below
+    python3 chip_kernel_variants.py --kernels stack-compact [--variants]
 
 Every time is device time from a torch.profiler trace (the kernels alone,
-without the host's enqueue gaps), at the main path's shapes (1M splats
+back to back in a queue the host filled ahead), at the main path's shapes (1M splats
 SH-3, 1024x1024, camera 0 of chip_smoke.py) and on the huge-splat
 1024x1024 scene.  K4 is also timed with the early exit disabled
 (transmittance_eps = -1): every sorted pair is then blended, lists are
 ~890 pairs deep, and the rate is the inner loop's own, free of per-tile
 set-up; with that the tiles are also run heaviest first and lightest first.
+K6 and K7 are timed on the banded emission's arrays (sort_bands=16, camera
+0) at a fresh Renderer's capacities and uniform band rows, and at the
+capacities and band rows its warm-up frames settle at, with one
+torch.stack and one device-to-device copy of K6's bytes beside them.
 
-The first part uses only the package's public wrappers and chip_smoke.py's
-device_busy_ms, so a copy of this file placed in a checkout of an earlier
-commit times that commit's kernels (the baseline of a comparison).  A
+The first part uses only the package's public wrappers, so a copy of this
+file placed in a checkout of an earlier commit times that commit's kernels
+(the baseline of a comparison).  A
 variant is the committed source with a few lines replaced, built into a
 temporary directory and called through ctypes; each is held against the
 plain PyTorch version beside its time.  The replacements follow the inner
@@ -27,6 +32,7 @@ and is then brought up to date or dropped.
 
 import argparse
 import ctypes
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -34,6 +40,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
+
+# Cycles the card spins ahead of a traced run (about 20 ms), so that every
+# launch is queued before the first runs and the kernels run back to back.
+HEAD_START_CYCLES = 40_000_000
 
 # name -> [(old text, new text), ...] applied to csrc/raster.cu
 K4_VARIANTS = {
@@ -112,11 +122,219 @@ K3_VARIANTS = {
                             ("constexpr int kBlocksPerSm = 6;", "constexpr int kBlocksPerSm = 2;")],
 }
 
+# The aligned path of csrc/stack.cu sent through stack_kernel<float4>: K6's
+# first design, a short block per 32 KB.
+_K6_FIRST = [
+    ("  if (vec) return launch_bulk(c, k, m, out, s);",
+     "  if (vec) {\n"
+     "    const dim3 grid4(gsr::blocks_for(m / 4, kThreads * kPerThread), k);\n"
+     "    stack_kernel<float4><<<grid4, kThreads, 0, s>>>(c, m / 4, static_cast<float4*>(out));\n"
+     "    return static_cast<int>(cudaGetLastError());\n"
+     "  }"),
+]
+# A persistent grid of 256-thread blocks that walks 32 KB chunks through
+# float4 registers, the next chunk's loads started before this chunk's stores.
+_K6_WALK_KERNEL = (
+    "constexpr int kWalkBlocksPerSm = 4;\n"
+    "__global__ void __launch_bounds__(kThreads)\n"
+    "stack_walk_kernel(StackCols cols, int k, long long m4, float4* __restrict__ out) {\n"
+    "  const long long per_col = (m4 + kThreads * kPerThread - 1) / (kThreads * kPerThread);\n"
+    "  const long long total = per_col * k;\n"
+    "  float4 cur[kPerThread], nxt[kPerThread];\n"
+    "  auto fetch = [&](long long c, float4* v) {\n"
+    "    const int r = static_cast<int>(c / per_col);\n"
+    "    const float4* src = reinterpret_cast<const float4*>(cols.p[r]);\n"
+    "    const long long base = (c - r * per_col) * kThreads * kPerThread + threadIdx.x;\n"
+    "#pragma unroll\n"
+    "    for (int u = 0; u < kPerThread; ++u)\n"
+    "      if (base + u * kThreads < m4) v[u] = __ldcs(src + base + u * kThreads);\n"
+    "  };\n"
+    "  long long c = blockIdx.x;\n"
+    "  if (c >= total) return;\n"
+    "  fetch(c, cur);\n"
+    "  for (; c < total; c += gridDim.x) {\n"
+    "    if (c + gridDim.x < total) fetch(c + gridDim.x, nxt);\n"
+    "    const int r = static_cast<int>(c / per_col);\n"
+    "    const long long base = (c - r * per_col) * kThreads * kPerThread + threadIdx.x;\n"
+    "#pragma unroll\n"
+    "    for (int u = 0; u < kPerThread; ++u)\n"
+    "      if (base + u * kThreads < m4) __stcs(out + r * m4 + base + u * kThreads, cur[u]);\n"
+    "#pragma unroll\n"
+    "    for (int u = 0; u < kPerThread; ++u) cur[u] = nxt[u];\n"
+    "  }\n"
+    "}\n\n"
+    "bool aligned16(const void* p) {"
+)
+_K6_WALK = [
+    ("bool aligned16(const void* p) {", _K6_WALK_KERNEL),
+    ("  if (vec) return launch_bulk(c, k, m, out, s);",
+     "  if (vec) {\n"
+     "    int sms = 0;\n"
+     "    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0);\n"
+     "    stack_walk_kernel<<<sms * kWalkBlocksPerSm, kThreads, 0, s>>>(\n"
+     "        c, k, m / 4, static_cast<float4*>(out));\n"
+     "    return static_cast<int>(cudaGetLastError());\n"
+     "  }"),
+]
+
+# The evict-first L2 policy as the 64-bit word that createpolicy makes for a
+# fraction of 1.0; the hint is one more operand of the bulk copy.
+_EVICT_FIRST = "0x12F0000000000000ULL"
+_K6_NO_LOAD_HINT = [
+    ("complete_tx::bytes.L2::cache_hint \"\n"
+     "      \"[%0], [%1], %2, [%3], %4;\\n\" ::\"r\"(dst), \"l\"(src), \"r\"(bytes), \"r\"(bar), "
+     "\"l\"(policy)",
+     "complete_tx::bytes \"\n"
+     "      \"[%0], [%1], %2, [%3];\\n\" ::\"r\"(dst), \"l\"(src), \"r\"(bytes), \"r\"(bar)"),
+]
+_K6_STORE_HINT = [
+    ("bulk_group [%0], [%1], %2;\\n\" ::\"l\"(dst),\n"
+     "               \"r\"(src), \"r\"(bytes)",
+     "bulk_group.L2::cache_hint [%0], [%1], %2, %3;\\n\" ::\"l\"(dst),\n"
+     "               \"r\"(src), \"r\"(bytes), \"l\"(" + _EVICT_FIRST + ")"),
+]
+# chunk_of learns the column count, for another order of the chunks.
+_K6_CHUNK_K = [
+    ("long long chunks_per_col, long long i) {", "long long chunks_per_col, long long i, int k) {"),
+    ("chunk_of(cols, out, col_bytes, chunks_per_col, i);",
+     "chunk_of(cols, out, col_bytes, chunks_per_col, i, k);"),
+    ("chunk_of(cols, out, col_bytes, chunks_per_col, j);",
+     "chunk_of(cols, out, col_bytes, chunks_per_col, j, k);"),
+]
+
+
+def _ring(stages, kib, blocks):
+    """The committed ring (4 stages of 16 KB, 3 blocks an SM) with other numbers."""
+    repl = [("constexpr int kStages = 4;", f"constexpr int kStages = {stages};"),
+            ("constexpr int kStageBytes = 16 * 1024;", f"constexpr int kStageBytes = {kib} * 1024;"),
+            ("constexpr int kBlocksPerSm = 3;", f"constexpr int kBlocksPerSm = {blocks};")]
+    return [(old, new) for old, new in repl if old != new]
+
+
+# name -> replacements applied to csrc/stack.cu
+K6_VARIANTS = {
+    "committed": [],
+    "first design: float4 registers, a short block per 32 KB": _K6_FIRST,
+    "first design with __ldcs/__stcs": _K6_FIRST + [
+        ("if (c < m) v[u] = src[c];", "if (c < m) v[u] = __ldcs(src + c);"),
+        ("if (c < m) dst[c] = v[u];", "if (c < m) __stcs(dst + c, v[u]);"),
+    ],
+    "persistent float4 walk, 4 blocks an SM": _K6_WALK,
+    "persistent float4 walk, 8 blocks an SM": _K6_WALK + [
+        ("constexpr int kWalkBlocksPerSm = 4;", "constexpr int kWalkBlocksPerSm = 8;")],
+    "ring 2 x 32 KB, 1 block an SM": _ring(2, 32, 1),
+    "ring 3 x 32 KB, 1 block an SM": _ring(3, 32, 1),
+    "ring 3 x 32 KB, 2 blocks an SM": _ring(3, 32, 2),
+    "ring 6 x 32 KB, 1 block an SM": _ring(6, 32, 1),
+    "ring 2 x 16 KB, 4 blocks an SM": _ring(2, 16, 4),
+    "ring 3 x 16 KB, 4 blocks an SM": _ring(3, 16, 4),
+    "ring 4 x 16 KB, 2 blocks an SM": _ring(4, 16, 2),
+    "ring 4 x 32 KB, 1 block an SM": _ring(4, 32, 1),
+    "ring 3 x 64 KB, 1 block an SM": _ring(3, 64, 1),
+    # Chunks a little under a stage, cut so that every block takes the same
+    # number; they no longer start on 128-byte lines.
+    "ring, chunks cut evenly among the blocks": [
+        ("  const long long chunks_per_col = (col_bytes + kStageBytes - 1) / kStageBytes;",
+         "  long long n_even = (col_bytes + kStageBytes - 1) / kStageBytes;\n"
+         "  while (n_even * k % gridDim.x) ++n_even;\n"
+         "  const long long chunk_even = ((col_bytes + n_even - 1) / n_even + 15) / 16 * 16;\n"
+         "  const long long chunks_per_col = (col_bytes + chunk_even - 1) / chunk_even;"),
+        ("  const long long off = (c - r * chunks_per_col) * kStageBytes;",
+         "  const long long chunk_even = (col_bytes / chunks_per_col + 15) / 16 * 16;\n"
+         "  const long long off = (c - r * chunks_per_col) * chunk_even;"),
+        ("static_cast<uint32_t>(left < kStageBytes ? left : kStageBytes)};",
+         "static_cast<uint32_t>(left < chunk_even ? left : chunk_even)};"),
+    ],
+    "ring, the last wait for the stores' writes, not their reads": [
+        ("cp.async.bulk.wait_group.read 0;", "cp.async.bulk.wait_group 0;")],
+    "ring, loads without the L2 hint": _K6_NO_LOAD_HINT,
+    "ring, stores evict-first in L2 too": _K6_STORE_HINT,
+    # Neighbouring chunks alternate between the columns instead of the grid
+    # working through one column after the other.
+    "ring, chunks interleave the columns": _K6_CHUNK_K + [
+        ("  const int r = static_cast<int>(c / chunks_per_col);\n"
+         "  const long long off = (c - r * chunks_per_col) * kStageBytes;",
+         "  const int r = static_cast<int>(c % k);\n"
+         "  const long long off = (c / k) * kStageBytes;")],
+    # A block takes one run of neighbouring chunks instead of every grid-th.
+    "ring, a run of neighbouring chunks a block": _K6_CHUNK_K + [
+        ("  const long long c = blockIdx.x + i * gridDim.x;",
+         "  const long long c = blockIdx.x * ((chunks_per_col * k + gridDim.x - 1) / gridDim.x) + i;"),
+        ("  const long long mine = (total - blockIdx.x + gridDim.x - 1) / gridDim.x;",
+         "  const long long run = (total + gridDim.x - 1) / gridDim.x;\n"
+         "  const long long left = total - blockIdx.x * run;\n"
+         "  const long long mine = left < run ? left : run;")],
+}
+
+_K7_PLAIN_FILL = [
+    ("store_fill(float4* p, float4 v) { __stcs(p, v); }", "store_fill(float4* p, float4 v) { *p = v; }"),
+    ("store_fill(float* p, float v) { __stcs(p, v); }", "store_fill(float* p, float v) { *p = v; }"),
+]
+# name -> replacements applied to csrc/compact.cu
+K7_VARIANTS = {
+    "committed": [],
+    "tile of 2048 columns": [("constexpr int kSlabs = 4;", "constexpr int kSlabs = 2;")],
+    "tile of 1024 columns": [("constexpr int kSlabs = 4;", "constexpr int kSlabs = 1;")],
+    "128 threads, tile of 2048": [("constexpr int kThreads = 256;", "constexpr int kThreads = 128;")],
+    "512 threads, tile of 8192": [("constexpr int kThreads = 256;", "constexpr int kThreads = 512;")],
+    "fill with plain stores": _K7_PLAIN_FILL,
+    "streaming stores in the scatter too": [
+        ("      dst[0] = s_excl[t];\n      dst[cc] = s_incl[t];",
+         "      __stcs(dst, s_excl[t]);\n      __stcs(dst + cc, s_incl[t]);"),
+        ("for (int r = 2; r < kRows; ++r) dst[r * cc] = v[r - 2];",
+         "for (int r = 2; r < kRows; ++r) __stcs(dst + r * cc, v[r - 2]);"),
+    ],
+    "band-major block order": [
+        ("scatter_tile<kVec>(a, static_cast<int>(b % a.n_bands), b / a.n_bands);",
+         "scatter_tile<kVec>(a, static_cast<int>(b / a.n_tiles), b % a.n_tiles);")],
+    "fill blocks first": [
+        ("  const long long b = blockIdx.x;\n  const long long n_scatter = a.n_tiles * a.n_bands;",
+         "  const long long n_scatter = a.n_tiles * a.n_bands;\n"
+         "  const long long b = (blockIdx.x + n_scatter) % (n_scatter + a.fill_chunks * a.n_bands);")],
+    "fill 1024 slots a block": [("constexpr int kFillSlots = 2048;", "constexpr int kFillSlots = 1024;")],
+    "fill 8192 slots a block": [("constexpr int kFillSlots = 2048;", "constexpr int kFillSlots = 8192;")],
+    # Every scatter block also fills its share of the band's free slots
+    # before it looks at its prefixes; no block has the fill role.
+    "fill fused into the scatter blocks": [
+        ("    scatter_tile<kVec>(a, static_cast<int>(b % a.n_bands), b / a.n_bands);\n",
+         "    {\n"
+         "      const int g = static_cast<int>(b % a.n_bands);\n"
+         "      const long long tile = b / a.n_bands;\n"
+         "      long long kept_g = static_cast<long long>(a.pfx[g * a.np + a.np - 1]) - g * a.mc;\n"
+         "      kept_g = kept_g < 0 ? 0 : (kept_g > a.mc ? a.mc : kept_g);\n"
+         "      const long long lo = kept_g + (a.mc - kept_g) * tile / a.n_tiles;\n"
+         "      const long long hi = kept_g + (a.mc - kept_g) * (tile + 1) / a.n_tiles;\n"
+         "      if (lo < hi)\n"
+         "        fill_slots(a.out, a.mc * a.n_bands, g * a.mc + lo, g * a.mc + hi,\n"
+         "                   static_cast<float>(a.pair_end[g]));\n"
+         "    }\n"
+         "    scatter_tile<kVec>(a, static_cast<int>(b % a.n_bands), b / a.n_bands);\n"),
+        ("  a.fill_chunks = (mc + kFillSlots - 1) / kFillSlots;", "  a.fill_chunks = 0;"),
+    ],
+    # A thread per (row, slot) instead of a thread per slot with 16 rows.
+    "stores spread over (row, slot)": [
+        ("    for (int t = threadIdx.x; t < count; t += kThreads) {\n"
+         "      const long long slot = s0 + base + t;\n"
+         "      if (slot < 0 || slot >= cc) continue;\n",
+         "    for (int e = threadIdx.x; e < count * kRows; e += kThreads) {\n"
+         "      const int r = e / count, t = e - r * count;\n"
+         "      const long long slot = s0 + base + t;\n"
+         "      if (slot < 0 || slot >= cc) continue;\n"
+         "      a.out[r * cc + slot] = r == 0 ? s_excl[t] : r == 1 ? s_incl[t]\n"
+         "          : __ldg(a.full + r * a.np + col0 + s_col[t]);\n"
+         "      continue;\n"),
+    ],
+}
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--variants", action="store_true",
                         help="also build and time the design variants")
+    parser.add_argument("--kernels", choices=("all", "emit-raster", "stack-compact"),
+                        default="all", help="which kernels to time (default: all four)")
+    parser.add_argument("--match", default="",
+                        help="of the variants, only 'committed' and those whose name holds this")
     args = parser.parse_args()
 
     import torch
@@ -126,13 +344,7 @@ def main() -> int:
         return 1
 
     from cudagaussianrenderer_torch import RenderConfig, Renderer, orbit_cameras, random_scene
-    from cudagaussianrenderer_torch.models.camera import Camera
-    from cudagaussianrenderer_torch.ops import expand, raster
-    from cudagaussianrenderer_torch.ops.binning import emit_columns
-    from cudagaussianrenderer_torch.ops.projection import project_splats
-    from cudagaussianrenderer_torch.render import _frame_pairs, _splat_colors, camera_tensors
     from cudagaussianrenderer_torch.utils import cuda_build as cb
-    from chip_smoke import device_busy_ms
 
     dev = torch.device("cuda")
     print(ROOT, flush=True)
@@ -140,55 +352,43 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip(), flush=True)
 
-    def device_ms(call, reps=30):
+    def device_ms(call, reps=30, apart=False):
+        """Traced time of one call's kernels, from ``reps`` calls: back
+        to back behind a head start that lets the host queue them all or,
+        with ``apart``, each synchronised before the next starts.  Summed
+        here and not by chip_smoke.py, so that a copy of this file in an
+        older checkout measures in the same way."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
         call()
         torch.cuda.synchronize()
-        busy = device_busy_ms(lambda: [call() for _ in range(reps)])
-        if busy is None:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            if not apart:
+                torch.cuda._sleep(HEAD_START_CYCLES)
+            for _ in range(reps):
+                call()  # results are dropped: no allocation grows while the trace runs
+                if apart:
+                    torch.cuda.synchronize()
+            torch.cuda.synchronize()
+        # A trace may hold fewer records of a kernel than it was launched, and
+        # single records that are too short: each kernel's median record,
+        # times its launches a call.
+        records = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key:
+                records.setdefault(e.key, []).append(e.self_device_time_total)
+        us = 0.0
+        for key, times in records.items():
+            per_call = max(1, round(len(times) / reps))
+            if len(times) < 0.9 * reps * per_call:
+                print(f"    (the trace holds {len(times)} records of {key[:40]} "
+                      f"for {reps} calls)", flush=True)
+            us += statistics.median(times) * per_call
+        if us <= 0:
             raise RuntimeError("the profiler trace holds no device time")
-        return busy / reps
+        return us / 1e3
 
-    def setup(scene, cam, cfg, cap):
-        c = camera_tensors(cam.camera_data(), dev)
-        clip = project_splats(scene.means, scene.scales, scene.quats, c, cfg,
-                              opacities=scene.opacities)
-        cols, incl = emit_columns(clip, _splat_colors(scene, c), scene.opacities, cfg)
-        rows = expand.interleave_rows(incl, tuple(x.contiguous() for x in cols), cap + 1)
-        _, attrs, starts, counts = _frame_pairs(scene, c, cfg, cap)
-        return dict(cfg=cfg, cap=cap, rows=rows, starts=starts.contiguous(),
-                    counts=counts.contiguous(),
-                    pair_data=raster.pack_pair_data(attrs, cfg.raster_chunk))
-
-    cfg = RenderConfig()
-    scene = Renderer(random_scene(1_000_000, seed=0, min_scale=0.002, max_scale=0.053,
-                                  extent=4.0, sh_degree=3, device=dev), cfg).scene
-    hcfg = RenderConfig(screen_size=1024)
-    hscene = random_scene(192, seed=9, min_scale=0.3, max_scale=1.6, extent=3.0,
-                          device=dev).pad_to_multiple(256)
-    cases = {
-        "main path": setup(scene, orbit_cameras(scene.bounds_min, scene.bounds_max, 8)[0],
-                           cfg, 3932160),
-        "huge splats": setup(hscene, Camera(aspect=1.0).framed(hscene.bounds_min,
-                                                                hscene.bounds_max),
-                             hcfg, 524288),
-    }
-
-    print("== the kernels of this checkout, through their wrappers (device ms)")
-    for name, c in cases.items():
-        for _ in range(2):
-            k3 = device_ms(lambda: expand.emit_slots(c["rows"], c["cap"], c["cfg"]))
-            k4 = device_ms(lambda: raster.rasterize_tiles(
-                c["pair_data"], c["starts"], c["counts"], c["cfg"]))
-            print(f"  {name}: K3 emit {k3:.4f}, K4 raster {k4:.4f}", flush=True)
-    if not args.variants:
-        return 0
-
-    for c in cases.values():
-        stats = {}
-        c["tiles"] = raster._raster_torch(c["pair_data"], c["starts"], c["counts"], c["cfg"],
-                                          c["cfg"].total_tiles, 0, stats)
-        c["evals"] = stats["pairs_blended"] * c["cfg"].pixels_per_tile
-        c["words"] = expand._emit_torch(c["rows"], c["cap"], c["cfg"])
     # Removed at the end, or by its finalizer when a variant raises.
     tmp = tempfile.TemporaryDirectory(prefix="gsr_variants_")
     scratch = Path(tmp.name)
@@ -213,6 +413,74 @@ def main() -> int:
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         return fn, regs
 
+    cfg = RenderConfig()
+    raw_scene = random_scene(1_000_000, seed=0, min_scale=0.002, max_scale=0.053,
+                             extent=4.0, sh_degree=3, device=dev)
+    scene = Renderer(raw_scene, cfg).scene
+    cam0 = orbit_cameras(scene.bounds_min, scene.bounds_max, 8)[0]
+    def chosen(variants):
+        return {tag: repl for tag, repl in variants.items()
+                if tag == "committed" or args.match in tag}
+
+    tools = dict(torch=torch, dev=dev, cb=cb, device_ms=device_ms, build=build,
+                 variants=args.variants, chosen=chosen)
+    if args.kernels in ("all", "emit-raster"):
+        emit_raster(tools, scene, cam0, cfg)
+    if args.kernels in ("all", "stack-compact"):
+        stack_compact(tools, raw_scene, scene, cam0)
+    tmp.cleanup()
+    return 0
+
+
+def emit_raster(tools, scene, cam0, cfg):
+    """K3 and K4 through their wrappers and, with --variants, their variants."""
+    torch, dev, cb = tools["torch"], tools["dev"], tools["cb"]
+    device_ms, build = tools["device_ms"], tools["build"]
+    from cudagaussianrenderer_torch import RenderConfig, random_scene
+    from cudagaussianrenderer_torch.models.camera import Camera
+    from cudagaussianrenderer_torch.ops import expand, raster
+    from cudagaussianrenderer_torch.ops.binning import emit_columns
+    from cudagaussianrenderer_torch.ops.projection import project_splats
+    from cudagaussianrenderer_torch.render import _frame_pairs, _splat_colors, camera_tensors
+
+    def setup(scene_, cam, cfg_, cap):
+        c = camera_tensors(cam.camera_data(), dev)
+        clip = project_splats(scene_.means, scene_.scales, scene_.quats, c, cfg_,
+                              opacities=scene_.opacities)
+        cols, incl = emit_columns(clip, _splat_colors(scene_, c), scene_.opacities, cfg_)
+        rows = expand.interleave_rows(incl, tuple(x.contiguous() for x in cols), cap + 1)
+        _, attrs, starts, counts = _frame_pairs(scene_, c, cfg_, cap)
+        return dict(cfg=cfg_, cap=cap, rows=rows, starts=starts.contiguous(),
+                    counts=counts.contiguous(),
+                    pair_data=raster.pack_pair_data(attrs, cfg_.raster_chunk))
+
+    hcfg = RenderConfig(screen_size=1024)
+    hscene = random_scene(192, seed=9, min_scale=0.3, max_scale=1.6, extent=3.0,
+                          device=dev).pad_to_multiple(256)
+    cases = {
+        "main path": setup(scene, cam0, cfg, 3932160),
+        "huge splats": setup(hscene, Camera(aspect=1.0).framed(hscene.bounds_min,
+                                                                hscene.bounds_max),
+                             hcfg, 524288),
+    }
+
+    print("== K3, K4 of this checkout, through their wrappers (device ms)")
+    for name, c in cases.items():
+        for _ in range(2):
+            k3 = device_ms(lambda: expand.emit_slots(c["rows"], c["cap"], c["cfg"]))
+            k4 = device_ms(lambda: raster.rasterize_tiles(
+                c["pair_data"], c["starts"], c["counts"], c["cfg"]))
+            print(f"  {name}: K3 emit {k3:.4f}, K4 raster {k4:.4f}", flush=True)
+    if not tools["variants"]:
+        return
+
+    for c in cases.values():
+        stats = {}
+        c["tiles"] = raster._raster_torch(c["pair_data"], c["starts"], c["counts"], c["cfg"],
+                                          c["cfg"].total_tiles, 0, stats)
+        c["evals"] = stats["pairs_blended"] * c["cfg"].pixels_per_tile
+        c["words"] = expand._emit_torch(c["rows"], c["cap"], c["cfg"])
+
     def raster_call(fn, c, out, eps=None, order=None):
         cfg_ = c["cfg"]
         starts, counts = c["starts"], c["counts"]
@@ -235,7 +503,7 @@ def main() -> int:
     m = cases["main path"]
     all_evals = int(m["counts"].sum()) * m["cfg"].pixels_per_tile
     heavy = torch.argsort(m["counts"], descending=True)
-    for tag, repl in K4_VARIANTS.items():
+    for tag, repl in tools["chosen"](K4_VARIANTS).items():
         fn, regs = build("raster", tag, repl, "gsr_raster", k4_args)
         line = f"  {tag}: registers {regs[-1]}"
         for name, c in cases.items():
@@ -260,7 +528,7 @@ def main() -> int:
 
     print("== K3 variants (device ms)")
     k3_args = [cb.P, cb.I64, cb.I32, cb.I32, cb.I32, cb.I32, cb.I32] + [cb.P] * 7
-    for tag, repl in K3_VARIANTS.items():
+    for tag, repl in tools["chosen"](K3_VARIANTS).items():
         fn, regs = build("emit", tag, repl, "gsr_emit", k3_args)
         line = f"  {tag}: registers {regs[-1]}"
         for name, c in cases.items():
@@ -277,8 +545,146 @@ def main() -> int:
             equal = all(torch.equal(a, b) for a, b in zip(outs, c["words"]))
             line += f"; {name} {ms:.4f} (six words equal: {equal})"
         print(line, flush=True)
-    tmp.cleanup()
-    return 0
+
+
+def stack_compact(tools, raw_scene, scene, cam0):
+    """K6 and K7 through their wrappers and, with --variants, their variants,
+    on the banded emission's arrays at the fresh and the settled shapes."""
+    torch, dev, cb = tools["torch"], tools["dev"], tools["cb"]
+    device_ms, build = tools["device_ms"], tools["build"]
+    from cudagaussianrenderer_torch import RenderConfig, Renderer
+    from cudagaussianrenderer_torch.ops import banded
+    from cudagaussianrenderer_torch.ops.binning import (
+        emit_columns, splat_row_packs, splat_tile_rects,
+    )
+    from cudagaussianrenderer_torch.ops.projection import project_splats
+    from cudagaussianrenderer_torch.render import _band_rows_tensor, _splat_colors, camera_tensors
+
+    G = 16
+    bcfg = RenderConfig(sort_bands=G)
+    cam = camera_tensors(cam0.camera_data(), dev)
+    clip = project_splats(scene.means, scene.scales, scene.quats, cam, bcfg,
+                          opacities=scene.opacities)
+    cols, _ = emit_columns(clip, _splat_colors(scene, cam), scene.opacities, bcfg)
+    cols = tuple(c.contiguous() for c in cols)
+    rects = splat_tile_rects(clip, bcfg)
+    packs = splat_row_packs(clip, rects, bcfg)
+
+    def inputs(rows, cap, ccap):
+        """The arrays K6 and K7 read in one banded emission."""
+        counts = banded.band_counts(rects, packs, rows)
+        n = counts.shape[1]
+        pre = banded.band_prefixes(counts, cap // G, ccap // G)
+        np_ = banded.padded_width(n)
+        zeros = torch.zeros(n, dtype=torch.float32, device=dev)
+        k6_in = banded.band_prefix_columns(pre, np_)
+        full = banded.interleave_rows_padded((zeros, zeros) + cols, np_)
+        pfx = banded.stack_rows(k6_in)
+        kept = int((pfx[1] != pfx[2]).sum())
+        return dict(k6_in=k6_in, full=full, pfx=pfx, pair_end=pre.pair_end, ccap=ccap, np=np_,
+                    kept=kept, rows=rows.tolist(),
+                    k6_bytes=2 * 4 * len(k6_in) * G * np_,
+                    k7_bytes=4 * 2 * G * np_ + 4 * kept + 4 * 14 * kept + 4 * 16 * ccap)
+
+    r = Renderer(raw_scene, bcfg)
+    cases = {"fresh": inputs(_band_rows_tensor(None, bcfg, dev), r.capacity, r.compact_capacity)}
+    for _ in range(3):  # as chip_smoke.py phase 7 settles them
+        before = (r.capacity, r.compact_capacity)
+        r.render(cam0)
+        if (r.capacity, r.compact_capacity) == before:
+            break
+    cases["settled"] = inputs(_band_rows_tensor(r.band_rows, bcfg, dev), r.capacity,
+                              r.compact_capacity)
+    del r
+    hbm = 3.35e12  # H100 SXM data sheet, bytes a second
+
+    def event_ms(call, reps=20):
+        call()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            call()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    print("== K6, K7 of this checkout, through their wrappers (device ms; bound by bytes)")
+    for name, c in cases.items():
+        print(f"  {name}: NP {c['np']}, compact capacity {c['ccap']}, {c['kept']} kept columns, "
+              f"band rows {c['rows']}", flush=True)
+        dst = torch.empty_like(c["pfx"])
+        src = torch.stack(c["k6_in"])
+        for _ in range(2):
+            k6 = device_ms(lambda: banded.stack_rows(c["k6_in"]))
+            lib = device_ms(lambda: torch.stack(c["k6_in"]))
+            copy = device_ms(lambda: dst.copy_(src))
+            k7 = device_ms(lambda: banded.compact_rows(c["full"], c["pfx"], c["pair_end"],
+                                                       c["ccap"]))
+            print(f"  {name}: K6 stack {k6:.4f} (bound {c['k6_bytes'] / hbm * 1e3:.4f}; "
+                  f"torch.stack {lib:.4f}, one device-to-device copy {copy:.4f}), "
+                  f"K7 compact {k7:.4f} (bound {c['k7_bytes'] / hbm * 1e3:.4f})", flush=True)
+        # Does a kernel that starts on an idle card read another time than in
+        # a full queue?  And what do events around the calls add to it?
+        calls = (lambda: banded.stack_rows(c["k6_in"]), lambda: torch.stack(c["k6_in"]),
+                 lambda: banded.compact_rows(c["full"], c["pfx"], c["pair_end"], c["ccap"]))
+        apart = [device_ms(fn, apart=True) for fn in calls]
+        events = [event_ms(fn) for fn in calls]
+        print(f"  {name}, each launch synchronised before the next: K6 stack {apart[0]:.4f}, "
+              f"torch.stack {apart[1]:.4f}, K7 compact {apart[2]:.4f}; between events around 20 "
+              f"calls: {events[0]:.4f}, {events[1]:.4f}, {events[2]:.4f}", flush=True)
+        del dst, src
+    if not tools["variants"]:
+        return
+
+    for c in cases.values():
+        c["k6_plain"] = banded._stack_rows_torch(c["k6_in"])
+        c["k7_plain"] = banded._compact_rows_torch(c["full"], c["pfx"], c["pair_end"], c["ccap"])
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    print("== K6 variants (device ms; ms between events around 20 launches)")
+    for tag, repl in tools["chosen"](K6_VARIANTS).items():
+        fn, regs = build("stack", tag, repl, "gsr_stack", [cb.P, cb.I32, cb.I64, cb.P, cb.P])
+        line = f"  {tag}: registers {'/'.join(regs)}"
+        for name, c in cases.items():
+            out = torch.empty_like(c["k6_plain"])
+            ptrs = (cb.P * len(c["k6_in"]))(*[x.data_ptr() for x in c["k6_in"]])
+
+            def call():
+                code = fn(ptrs, len(c["k6_in"]), c["k6_in"][0].shape[0], out.data_ptr(), stream())
+                if code:
+                    raise RuntimeError(f"launch failed: {code}")
+            call()
+            torch.cuda.synchronize()
+            equal = torch.equal(bits(out), bits(c["k6_plain"]))
+            line += (f"; {name} {device_ms(call):.4f} (between events {event_ms(call):.4f}, "
+                     f"bit-equal: {equal})")
+        print(line, flush=True)
+
+    print("== K7 variants (device ms)")
+    k7_args = [cb.P, cb.P, cb.P, cb.I64, cb.I32, cb.I64, cb.P, cb.P]
+    for tag, repl in tools["chosen"](K7_VARIANTS).items():
+        fn, regs = build("compact", tag, repl, "gsr_compact", k7_args)
+        line = f"  {tag}: registers {'/'.join(regs)}"
+        for name, c in cases.items():
+            out = torch.empty_like(c["k7_plain"])
+
+            def call():
+                code = fn(c["full"].data_ptr(), c["pfx"].data_ptr(), c["pair_end"].data_ptr(),
+                          c["np"], G, c["ccap"] // G, out.data_ptr(), stream())
+                if code:
+                    raise RuntimeError(f"launch failed: {code}")
+            out.fill_(float("nan"))
+            call()
+            torch.cuda.synchronize()
+            equal = torch.equal(bits(out), bits(c["k7_plain"]))
+            line += f"; {name} {device_ms(call):.4f} (bit-equal: {equal})"
+        print(line, flush=True)
 
 
 if __name__ == "__main__":

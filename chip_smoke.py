@@ -30,6 +30,11 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
      capacities and band rows the timed frames start from (the K5-K8 times
      and bounds of the per-kernel line are taken there).
 
+Every entry of the per-kernel line carries ``ms`` (CUDA events around
+back-to-back wrapper calls, which for a kernel shorter than a wrapper call
+is the host's time) and ``device_ms`` (the kernel's own time from a
+torch.profiler trace of the same calls; null if the trace holds none).
+
 Any failure raises and exits non-zero.  The last line of stdout is one
 JSON object naming the device; the line before it is the card's
 ``nvidia-smi`` name and power limit, and before that the per-kernel JSON
@@ -63,6 +68,10 @@ SFU_PER_CLOCK_PER_SM = 16
 # same pairs in the same order and differ by the kernel's ex2.approx of a
 # conic that carries log2(e), and by fused multiply-adds.
 K4_LSB_BOUND = 4
+# Cycles the card spins ahead of a traced run of launches (torch.cuda._sleep,
+# traced as spin_kernel): about 20 ms, enough for the host to queue 50
+# wrapper calls under the profiler.
+HEAD_START_CYCLES = 40_000_000
 # Main-path frame against the plain-version frame, and the golden scenes:
 # the repo's rule (tests/test_pipeline.py:20-27).
 PIX_TOL, BAD_FRAC = 8, 0.02
@@ -134,20 +143,52 @@ def device_busy_ms(fn):
     return us / 1e3 if us > 0 else None
 
 
+def trace_ms(fn, reps):
+    """Device time (ms) of what one ``fn()`` enqueues, from a profiler trace
+    of ``reps`` calls: the kernels alone, without the host's enqueue gaps.
+    The card first spins for HEAD_START_CYCLES, so that the host has queued
+    every call before the first runs and the kernels run back to back, as
+    they do between events.  A trace may hold fewer records of a kernel than
+    it was launched (15 to 19 of 20 were seen, fewer the longer the process
+    has run) and single records that are too short, so the time is each
+    kernel's median record times its launches a call, not the records' sum
+    over ``reps``.  None when the trace holds no device time."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(HEAD_START_CYCLES)
+        for _ in range(reps):
+            fn()  # the result is dropped, so the allocator hands out one block again
+        torch.cuda.synchronize()
+    records = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key:
+            records.setdefault(e.key, []).append(e.self_device_time_total)
+    us = 0.0
+    for key, times in records.items():
+        per_call = max(1, round(len(times) / reps))
+        if len(times) != reps * per_call:
+            log(f"    (the trace holds {len(times)} records of {key[:48]} for {reps} calls)")
+        us += statistics.median(times) * per_call
+    return us / 1e3 if us > 0 else None
+
+
 def device_ms(fn, reps):
     """Mean time of one ``fn()`` over ``reps`` calls, as text with the method
     that gave it: "x ms of device time" from a profiler trace (the kernels
     alone, where the host cannot enqueue as fast as the card runs them), or
     "x ms between events" where the trace holds no device time, which
     includes the host's enqueue gaps and is too high for a short kernel."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    busy = device_busy_ms(lambda: [fn() for _ in range(reps)])
+    busy = trace_ms(fn, reps)
     if busy is None:
         return f"{cuda_ms(fn, reps):.4f} ms between events"
-    return f"{busy / reps:.4f} ms of device time"
+    return f"{busy:.4f} ms of device time"
 
 
 def require(ok, what):
@@ -242,6 +283,7 @@ def main() -> int:
     lib_rows = [incl.float(), incl.float(), torch.arange(n, device=dev, dtype=torch.float32), *cols]
     kernels["interleave"] = dict(
         ms=cuda_ms(lambda: expand.interleave_rows(incl, cols, capacity + 1), 20),
+        device_ms=trace_ms(lambda: expand.interleave_rows(incl, cols, capacity + 1), 20),
         plain_ms=cuda_ms(lambda: expand._interleave_rows_torch(incl, cols, capacity + 1), 5),
         library_ms=cuda_ms(lambda: torch.stack(lib_rows), 20),
         bytes=4 * n * 14 + 4 * 16 * np_cols,
@@ -258,6 +300,7 @@ def main() -> int:
     ok3 = all(bits_equal(a, b) for a, b in zip(outs, outs_p))
     kernels["emit"] = dict(
         ms=cuda_ms(lambda: expand.emit_slots(rows, capacity, config), 20),
+        device_ms=trace_ms(lambda: expand.emit_slots(rows, capacity, config), 20),
         plain_ms=cuda_ms(lambda: expand._emit_torch(rows, capacity, config), 3),
         library_ms=None,
         bytes=4 * 16 * np_cols + 4 * 6 * capacity,
@@ -316,6 +359,7 @@ def main() -> int:
     bins = torch.clamp(as_u32_i64(keys[0]) >> 19, max=probes - 1)
     kernels["edges"] = dict(
         ms=cuda_ms(lambda: ranges.tile_edges(keys[0], probes, 19), 50),
+        device_ms=trace_ms(lambda: ranges.tile_edges(keys[0], probes, 19), 50),
         plain_ms=cuda_ms(lambda: ranges._edges_torch(keys[0], probes, 19), 10),
         library_ms=cuda_ms(lambda: torch.cumsum(torch.bincount(bins, minlength=probes), 0), 20),
         bytes=4 * capacity + 4 * probes,
@@ -341,6 +385,8 @@ def main() -> int:
     sfu_rate = sfu_results_per_s()
     kernels["raster"] = dict(
         ms=cuda_ms(lambda: raster.rasterize_tiles(pair_data, starts, counts, config), 20),
+        device_ms=trace_ms(
+            lambda: raster.rasterize_tiles(pair_data, starts, counts, config), 20),
         plain_ms=plain_raster_ms,
         library_ms=None,
         bytes=4 * 3 * int(incl[-1].clamp(max=capacity)) + 8 * config.total_tiles
@@ -511,6 +557,7 @@ def main() -> int:
                 "K5's library yardstick computes another array")
         found["interleave_padded"] = dict(
             ms=cuda_ms(lambda: banded.interleave_rows_padded(b["k5_in"], np_b), 20),
+            device_ms=trace_ms(lambda: banded.interleave_rows_padded(b["k5_in"], np_b), 20),
             plain_ms=cuda_ms(lambda: banded._interleave_rows_padded_torch(b["k5_in"], np_b), 5),
             library_ms=cuda_ms(lambda: torch.stack(lib5), 20),
             bytes=4 * n * 15 + 4 * 16 * np_b,
@@ -525,6 +572,7 @@ def main() -> int:
                 "K6's library yardstick computes another array")
         found["stack"] = dict(
             ms=cuda_ms(lambda: banded.stack_rows(b["k6_in"]), 20),
+            device_ms=trace_ms(lambda: banded.stack_rows(b["k6_in"]), 20),
             plain_ms=cuda_ms(lambda: banded._stack_rows_torch(b["k6_in"]), 5),
             library_ms=cuda_ms(lambda: torch.stack(b["k6_in"]), 20),
             bytes=2 * 4 * len(b["k6_in"]) * G * np_b,
@@ -536,6 +584,8 @@ def main() -> int:
         ok7 = bits_equal(b["comp"], b["plain"]["k7"])
         found["compact"] = dict(
             ms=cuda_ms(lambda: banded.compact_rows(b["full"], b["pfx"], pre.pair_end, ccap_), 20),
+            device_ms=trace_ms(
+                lambda: banded.compact_rows(b["full"], b["pfx"], pre.pair_end, ccap_), 20),
             plain_ms=cuda_ms(
                 lambda: banded._compact_rows_torch(b["full"], b["pfx"], pre.pair_end, ccap_), 3),
             library_ms=None,
@@ -553,6 +603,8 @@ def main() -> int:
         ok8 = all(bits_equal(x, y) for x, y in zip(b["outs"], b["plain"]["k8"]))
         found["emit_banded"] = dict(
             ms=cuda_ms(lambda: expand.emit_slots_banded(
+                b["comp"], cap_, bcfg, pre.pair_end, rows_, b["block"]), 20),
+            device_ms=trace_ms(lambda: expand.emit_slots_banded(
                 b["comp"], cap_, bcfg, pre.pair_end, rows_, b["block"]), 20),
             plain_ms=cuda_ms(lambda: expand._emit_torch(
                 b["comp"], cap_, bcfg, block=b["block"], pair_end=pre.pair_end,
@@ -584,6 +636,8 @@ def main() -> int:
         ok1b = bits_equal(bedges, bedges_p)
         k1b = dict(
             banded_ms=cuda_ms(lambda: ranges.tile_edges(bkeys[0], probes, 19, segments=G), 50),
+            banded_device_ms=trace_ms(
+                lambda: ranges.tile_edges(bkeys[0], probes, 19, segments=G), 50),
             banded_plain_ms=cuda_ms(
                 lambda: ranges._edges_torch(bkeys[0], probes, 19, segments=G), 10),
             banded_bound_ms=(4 * cap_ + 4 * G * probes) / HBM_BYTES_PER_S * 1e3,
@@ -609,9 +663,11 @@ def main() -> int:
         require(int(bcounts.sum()) == int(bpairs.num_pairs)
                 and (int(bpairs.num_pairs) == total) == (not saturated),
                 "the banded ranges do not cover the emitted pairs")
-        log("  ms (plain ms; byte bound ms): " + ", ".join(
-            f"{name} {k['ms']:.4f} ({k['plain_ms']:.3f}; "
-            f"{k['bytes'] / HBM_BYTES_PER_S * 1e3:.4f})" for name, k in found.items()))
+        log("  ms between events (device ms from the trace; plain ms; library ms; byte bound "
+            "ms): " + ", ".join(
+                f"{name} {k['ms']:.4f} ({k['device_ms']}; {k['plain_ms']:.3f}; "
+                f"{k['library_ms']}; {k['bytes'] / HBM_BYTES_PER_S * 1e3:.4f})"
+                for name, k in found.items()))
         return found, k1b
 
     banded_parity(band_rows, bcap, ccap, must_fit=False)
@@ -775,6 +831,7 @@ def main() -> int:
             launches=counts_of[wrapper],
             max_abs_err=k["max_abs_err"],
             ms=k["ms"],
+            device_ms=k["device_ms"],
             plain_ms=k["plain_ms"],
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="operations" if ops_ms > bytes_ms else "bytes",

@@ -20,8 +20,8 @@ The JAX package needs the compaction because a TPU cannot scatter: its
 emit walk must be dense over the splat axis, so it first gathers each
 band's splats together with a one-hot matmul.  The port keeps the two
 passes and their intermediate arrays — the tests hold each against the
-JAX package — but both kernels scatter: a source column writes its own
-compact slot, and a compact column writes its own pair slots.
+JAX package — but both kernels scatter: a source column's values go to its
+own compact slot, and a compact column's to its own pair slots.
 
 Each kernel has its plain PyTorch version beside it, which the wrapper
 runs for CPU tensors only; on a CUDA tensor it launches the kernel or
@@ -263,7 +263,11 @@ def compact_rows(
     p_excl != p_incl — a kept splat — owns slot c_incl - 1, which gets
     (p_excl, p_incl) in rows 0-1 and the splat's 14 attribute rows below;
     every other slot of band g = min(slot // MC, G - 1) gets the band's
-    pair end in rows 0-1 and zeros below.
+    pair end in rows 0-1 and zeros below.  The kernel takes the prefixes as
+    band_prefixes and band_prefix_columns make them: up to a band's last
+    kept column c_incl rises by one at every kept column and nowhere else,
+    so the kept columns own the first c_incl[g, -1] - g * MC slots of the
+    band in source order, and the fill the rest.
 
     The JAX array carries a trailing slack of a few blocks past
     compact_capacity so that its DMA windows can overrun; nothing walks

@@ -9,8 +9,10 @@ Emission order is deterministic, so every integer output must equal the
 JAX function's (Pallas kernels in interpret mode) exactly, slot for slot,
 saturated cases included."""
 
+import functools
 from collections import Counter
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +31,10 @@ from cudagaussianrenderer_tpu.ops import binning as jb
 from cudagaussianrenderer_tpu.ops import expand as je
 from cudagaussianrenderer_tpu.ops import ranges as jr
 from cudagaussianrenderer_tpu.ops.projection import project_splats as jx_project
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from torch_port_cases import COMPACT_CASES, COMPACT_CG, compact_counts
 
 
 def T(a) -> torch.Tensor:
@@ -200,6 +206,99 @@ def test_compact_rows_matches_its_contract(cg, mc):
 
     with pytest.raises(ValueError, match="does not split"):
         pbd.compact_rows(full, pfx, pre.pair_end, g_bands * mc + 1)
+
+
+def jax_compact(full, pre, counts, cg, mc, block):
+    """The JAX package's _compact_kernel alone, in interpret mode, launched
+    as its emit_pairs_banded launches it (pass 1 there: four stacked prefix
+    rows, per-block first owners from its histogram kernel, the scalar
+    table), on the port's source rows and prefixes.  Returns the first
+    G * mc columns of its array, which has a few blocks of slack behind."""
+    (g_bands, n), np_cols = counts.shape, full.shape[1]
+    c_incl, p_excl, p_incl = (jnp.asarray(x.numpy()) for x in (pre.c_incl, pre.p_excl, pre.p_incl))
+    sel = (counts > 0) & (np.cumsum(counts, axis=1) - counts < cg)
+
+    def pad_band(x, tail):
+        fill = jnp.broadcast_to(tail.astype(jnp.float32), (g_bands, np_cols - n))
+        return jnp.concatenate([x.astype(jnp.float32), fill], axis=1).reshape(g_bands * np_cols)
+
+    pfx = jbd._stackk([pad_band(c_incl, c_incl[:, -1:]), pad_band(p_excl, p_incl[:, -1:]),
+                       pad_band(p_incl, p_incl[:, -1:]), pad_band(p_incl, p_incl[:, -1:])], True)
+    shift = block.bit_length() - 1
+    np_m = g_bands * mc + -(-(2 * je.WINDOW + 128) // block) * block
+    nblocks = np_m // block
+    kc = ((c_incl.reshape(-1) + (block - 1)) >> shift).astype(jnp.uint32)
+    edges = jr._edges_pallas(kc, nblocks + 2, 0, True)
+    starts = edges[1:] + jnp.clip(edges[1:] // n, 0, g_bands - 1) * (np_cols - n)
+    band_splats = pre.band_splats.numpy()
+    np.testing.assert_array_equal(band_splats, sel.sum(1))
+    last_owner = np.where(sel, np.arange(n), 0).max(1)
+    scalars = jnp.concatenate([
+        starts.astype(jnp.int32),
+        jnp.asarray(np.arange(g_bands) * mc + np.minimum(band_splats, mc), jnp.int32),
+        jnp.asarray(last_owner, jnp.int32),
+        jnp.asarray(pre.pair_end.numpy(), jnp.int32),
+    ])
+    bps = je.BLOCKS_PER_STEP
+    while nblocks % bps:
+        bps //= 2
+    out = pl.pallas_call(
+        functools.partial(jbd._compact_kernel, block=block, bps=bps, bpb=mc // block,
+                          n_cols=np_cols, nblocks=nblocks, n_bands=g_bands),
+        grid_spec=pltpu.PrefetchScalarGridSpec(
+            num_scalar_prefetch=1, grid=(nblocks // bps,),
+            in_specs=[pl.BlockSpec(memory_space=pltpu.HBM), pl.BlockSpec(memory_space=pltpu.HBM)],
+            out_specs=[pl.BlockSpec((16, block * bps), lambda i, *_: (0, i))],
+            scratch_shapes=[pltpu.VMEM((6, 16, je.WINDOW), jnp.float32),
+                            pltpu.VMEM((6, 4, je.WINDOW), jnp.float32),
+                            pltpu.SemaphoreType.DMA((6,)), pltpu.SemaphoreType.DMA((6,))]),
+        out_shape=[jax.ShapeDtypeStruct((16, np_m), jnp.float32)],
+        interpret=True,
+    )(scalars, jnp.asarray(full.numpy()), pfx)[0]
+    return np.asarray(out)[:, :g_bands * mc]
+
+
+@pytest.mark.parametrize("name", COMPACT_CASES)
+def test_compact_rows_corner_cases_match_jax_kernel_and_contract(name):
+    """The cases a kernel that splits the slots by arithmetic can get wrong:
+    what the kept columns own must be a prefix of each band's slots, and the
+    fill the rest.  Bit-exact against the JAX kernel and the NumPy contract."""
+    n, mc = 600, 128
+    counts = compact_counts(name, n, mc, seed=len(name))
+    pre = pbd.band_prefixes(T(counts), COMPACT_CG, mc)
+    kept_g = (pre.p_excl != pre.p_incl).sum(1)
+    splats = pre.band_splats
+    if name == "empty-band":
+        assert int(kept_g[1]) == 0
+    elif name == "exactly-full":
+        assert int(splats[2]) == int(kept_g[2]) == mc
+    elif name == "saturated-then-roomy":
+        assert int(splats[1]) > mc == int(kept_g[1]) and int(kept_g[2]) == int(splats[2]) < mc
+    elif name == "kept-mod-4":
+        assert sorted((kept_g % 4).tolist()) == [0, 1, 2, 3]
+    else:
+        where = [torch.nonzero(pre.p_excl[g] != pre.p_incl[g])[:, 0] for g in range(4)]
+        assert all(int(w[-1] - w[0]) + 1 == len(w) == mc - 1 for w in where)
+    # The kept columns of a band own slots [g * mc, g * mc + kept_g) in source order.
+    np.testing.assert_array_equal(pre.c_incl[:, -1].numpy(), np.arange(4) * mc + kept_g.numpy())
+
+    rng = np.random.default_rng(1)
+    np_cols = pbd.padded_width(n)
+    cols = [rng.standard_normal(n).astype(np.float32) for _ in range(15)]
+    full = pbd.interleave_rows_padded([T(c) for c in cols], np_cols)
+    pfx = pbd.stack_rows(pbd.band_prefix_columns(pre, np_cols))
+    got = pbd.compact_rows(full, pfx, pre.pair_end, 4 * mc)
+    want = compact_numpy(full.numpy(), pre.c_incl.numpy(), pre.p_excl.numpy(),
+                         pre.p_incl.numpy(), pre.pair_end.numpy(), mc)
+    np.testing.assert_array_equal(U32(got), want.view(np.uint32))
+    np.testing.assert_array_equal(U32(got), jax_compact(full, pre, counts, COMPACT_CG, mc, 128).view(np.uint32))
+    # Kept slots are a prefix of every band, the fill is the band's pair end.
+    kept_slots = (got[0] != got[1]).view(4, mc)
+    for g in range(4):
+        k = int(kept_g[g])
+        assert kept_slots[g, :k].all() and not kept_slots[g, k:].any()
+        assert (got[0:2, g * mc + k:(g + 1) * mc] == float(pre.pair_end[g])).all()
+        assert (got[2:, g * mc + k:(g + 1) * mc] == 0).all()
 
 
 # ---------------------------------------------------------------------------

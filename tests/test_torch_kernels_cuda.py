@@ -23,7 +23,7 @@ from cudagaussianrenderer_torch.render import (
     _band_rows_tensor, _frame_pairs, _splat_colors, camera_tensors,
 )
 
-from torch_port_cases import cull_run, widen
+from torch_port_cases import COMPACT_CASES, COMPACT_CG, compact_counts, cull_run, widen
 
 pytestmark = pytest.mark.cuda
 
@@ -257,18 +257,67 @@ def test_wrappers_reject_bad_arguments(dev):
                                torch.zeros(3, dtype=torch.int32, device=dev), cfg)
 
 
-@pytest.mark.parametrize("k,m,offset", [(1, 4096, 0), (4, 8192, 0), (8, 1001, 0), (3, 4096, 1)],
-                         ids=["k1", "k4", "k8-odd-length", "k3-unaligned"])
-def test_stack_rows_matches_plain(dev, k, m, offset):
-    """Both copy widths of K6: 16 bytes a thread when the length and every
-    pointer allow it, 4 bytes otherwise."""
+# One stage of K6's ring holds 4,096 floats and the grid has a few hundred
+# blocks; a column of 1,200 stages and 37 float4 more gives every block
+# several turns of its ring and the column a short last chunk.
+STACK_CASES = [
+    ("k1", 1, 4096, 0), ("k4", 4, 8192, 0), ("k8-odd-length", 8, 1001, 0),
+    ("k3-unaligned", 3, 4096, 1), ("k3-offset-2", 3, 4096, 2), ("k3-offset-3", 3, 4096, 3),
+    ("below-one-stage", 3, 1024, 0), ("one-float4", 2, 4, 0),
+    ("many-turns-short-last-chunk", 3, 600 * 8192 + 4 * 37, 0),
+    ("k8-many-turns", 8, 40 * 8192 + 4, 0),
+    ("length-not-multiple-of-4", 3, 100 * 8192 + 2, 0),
+]
+
+
+@pytest.mark.parametrize("name,k,m,offset", STACK_CASES, ids=[c[0] for c in STACK_CASES])
+def test_stack_rows_matches_plain(dev, name, k, m, offset):
+    """Both routes of K6, bit for bit: bulk copies through shared memory when
+    the length is a multiple of 4 floats and every pointer is 16-byte
+    aligned, 4 bytes a thread otherwise."""
     gen = torch.Generator(device="cpu").manual_seed(k)
     cols = [torch.randn(m + offset, generator=gen).to(dev)[offset:] for _ in range(k)]
     assert all(c.is_contiguous() for c in cols)
+    before = banded.stack_rows.launches
     got = banded.stack_rows(cols)
+    torch.cuda.synchronize()
+    assert banded.stack_rows.launches == before + 1
     assert got.shape == (k, m)
     assert torch.equal(bits(got), bits(banded._stack_rows_torch(cols)))
     assert torch.equal(got, torch.stack(cols))
+
+
+# (columns, per-band compact capacity, width): three tiles of 4,096 source
+# columns, the last mostly padding, and dense bands that fill the kernel's
+# staging buffer more than once; then a width that is no multiple of 4.
+@pytest.mark.parametrize("n,mc,np_cols", [(9000, 2048, None), (600, 128, 1751)],
+                         ids=["three-tiles", "odd-width"])
+@pytest.mark.parametrize("name", COMPACT_CASES)
+def test_compact_rows_corner_cases_match_plain(dev, name, n, mc, np_cols):
+    """K7 against its plain version, bit for bit, on the cases that decide
+    which slots the kept columns own and which the fill."""
+    counts = torch.from_numpy(compact_counts(name, n, mc, seed=len(name))).to(dev)
+    pre = banded.band_prefixes(counts, COMPACT_CG, mc)
+    kept_g = (pre.p_excl != pre.p_incl).sum(1)
+    assert (int(pre.band_splats.max()) > mc) == (name == "saturated-then-roomy")
+    if name == "kept-mod-4":
+        assert sorted((kept_g % 4).tolist()) == [0, 1, 2, 3]
+    if name == "empty-band":
+        assert int(kept_g[1]) == 0
+    np_cols = np_cols or banded.padded_width(n)
+    gen = torch.Generator(device="cpu").manual_seed(n)
+    full = torch.randn((16, np_cols), generator=gen).to(dev)
+    pfx = banded.stack_rows(banded.band_prefix_columns(pre, np_cols))
+    before = banded.compact_rows.launches
+    got = banded.compact_rows(full, pfx, pre.pair_end, 4 * mc)
+    torch.cuda.synchronize()
+    assert banded.compact_rows.launches == before + 1
+    want = banded._compact_rows_torch(full, pfx, pre.pair_end, 4 * mc)
+    assert torch.equal(bits(got), bits(want))
+    kept_slots = (got[0] != got[1]).view(4, mc)
+    for g in range(4):
+        k = int(kept_g[g])
+        assert bool(kept_slots[g, :k].all()) and not bool(kept_slots[g, k:].any())
 
 
 def test_banded_wrappers_reject_bad_arguments(dev):
