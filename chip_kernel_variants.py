@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Time the emit (K3), raster (K4), stack (K6) and compact (K7) kernels
-alone on one GPU, and the design variants that were tried for them.
+"""Time the edges (K1), emit (K3), raster (K4), stack (K6) and compact (K7)
+kernels alone on one GPU, and the design variants that were tried for them.
 
 Run from the root of a checkout on a machine with one NVIDIA card:
 
     python3 chip_kernel_variants.py              # the kernels as committed
     python3 chip_kernel_variants.py --variants   # and the variants below
     python3 chip_kernel_variants.py --kernels stack-compact [--variants]
+    python3 chip_kernel_variants.py --kernels edges [--variants]
 
 Every time is device time from a torch.profiler trace (the kernels alone,
 back to back in a queue the host filled ahead), at the main path's shapes (1M splats
@@ -19,6 +20,9 @@ K6 and K7 are timed on the banded emission's arrays (sort_bands=16, camera
 0) at a fresh Renderer's capacities and uniform band rows, and at the
 capacities and band rows its warm-up frames settle at, with one
 torch.stack and one device-to-device copy of K6's bytes beside them.
+K1 is timed on the sorted keys of camera 0's flat list and of its banded
+list (sort_bands=16) at the capacities and band rows a Renderer's warm-up
+frames settle at, beside its plain version and torch.bincount + cumsum.
 
 The first part uses only the package's public wrappers, so a copy of this
 file placed in a checkout of an earlier commit times that commit's kernels
@@ -203,6 +207,127 @@ _K6_CHUNK_K = [
 ]
 
 
+# The committed launch: the scan, with 16-byte loads where it can.
+_K1_LAUNCH = "  if (n % 4 == 0 && reinterpret_cast<uintptr_t>(keys) % 16 == 0)"
+_K1_END = "}  // namespace\n"
+
+
+def _k1_instead(kernel, launch, cond="true"):
+    """Add ``kernel`` to csrc/edges.cu and launch it in place of the scan
+    where ``cond`` holds."""
+    return [(_K1_END, kernel + "\n" + _K1_END),
+            (_K1_LAUNCH, f"  if ({cond})\n    {launch};\n  else " + _K1_LAUNCH[2:])]
+
+
+# K1's first design, a thread a key.
+_K1_FIRST = _k1_instead(
+    "__global__ void first_kernel(const uint32_t* __restrict__ keys, long long n, int shift,\n"
+    "                             int num_probes, int* __restrict__ edges) {\n"
+    "  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;\n"
+    "  if (i > n) return;\n"
+    "  keys += blockIdx.y * n;\n"
+    "  edges += blockIdx.y * static_cast<long long>(num_probes);\n"
+    "  const uint32_t last = static_cast<uint32_t>(num_probes - 1);\n"
+    "  uint32_t lo = 0;\n"
+    "  uint32_t hi = last;\n"
+    "  if (i > 0) lo = min(keys[i - 1] >> shift, last) + 1u;\n"
+    "  if (i < n) hi = min(keys[i] >> shift, last);\n"
+    "  for (uint32_t t = lo; t <= hi; ++t) edges[t] = static_cast<int>(i);\n"
+    "}\n",
+    "first_kernel<<<dim3(gsr::blocks_for(n + 1, kThreads), segments), kThreads, 0, s>>>(\n"
+    "        a.keys, n, shift, num_probes, a.edges)")
+# The search: the warp of probe t of segment s finds edges[s, t], the first
+# position of bin >= t, by 32 probes of the keys a round (five dependent
+# 128-byte reads at 3.9M keys).
+_K1_SEARCH_KERNEL = (
+    "__global__ void __launch_bounds__(kThreads) search_kernel(EdgesArgs a) {\n"
+    "  const int lane = threadIdx.x & 31;\n"
+    "  const long long w = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5;\n"
+    "  if (w >= a.num_probes * (a.tiles / a.tiles_per_segment)) return;  // a whole warp\n"
+    "  const long long s = w / a.num_probes;\n"
+    "  const int t = static_cast<int>(w - s * a.num_probes);\n"
+    "  const uint32_t* __restrict__ keys = a.keys + s * a.n;\n"
+    "  long long lo = 0, hi = a.n;\n"
+    "  while (lo < hi) {\n"
+    "    const long long step = (hi - lo + 31) / 32;\n"
+    "    const long long q = lo + (lane + 1) * step - 1;\n"
+    "    const bool below = q < hi && bin_of(keys[q], a) < t;\n"
+    "    lo += __popc(__ballot_sync(kFull, below)) * step;\n"
+    "    hi = min(hi, lo + step - 1);\n"
+    "  }\n"
+    "  if (lane == 0) a.edges[s * a.num_probes + t] = static_cast<int>(lo);\n"
+    "}\n")
+
+
+def _k1_search(threads=256, cond="true"):
+    return _k1_instead(
+        _K1_SEARCH_KERNEL,
+        f"search_kernel<<<gsr::blocks_for(num_probes * static_cast<long long>(segments), "
+        f"{threads // 32}), {threads}, 0, s>>>(a)", cond)
+
+
+# (b): the head run [0, bin(key 0)] and the tail run past the last live bin
+# of every segment are written by one extra block a segment, at the end of
+# the scan's grid; it finds the first key of the last bin by a 256-ary
+# search.
+_K1_ENDS_BLOCK = (
+    "__device__ void ends_block(const EdgesArgs& a, long long s) {\n"
+    "  const uint32_t* keys = a.keys + s * a.n;\n"
+    "  int* edges = a.edges + s * a.num_probes;\n"
+    "  long long lo = 0, hi = a.n;  // the first position of the last bin lies in [lo, hi]\n"
+    "  while (lo < hi) {\n"
+    "    const long long step = (hi - lo + kThreads - 1) / kThreads;\n"
+    "    const long long q = lo + (threadIdx.x + 1) * step - 1;\n"
+    "    const int c = __syncthreads_count(q < hi && bin_of(keys[q], a) < a.last);\n"
+    "    lo += c * step;\n"
+    "    hi = min(hi, lo + step - 1);\n"
+    "  }\n"
+    "  const int b0 = a.n > 0 ? bin_of(keys[0], a) : a.last;\n"
+    "  for (int t = threadIdx.x; t <= b0; t += kThreads) edges[t] = 0;\n"
+    "  if (lo > 0)\n"
+    "    for (int t = bin_of(keys[lo - 1], a) + 1 + threadIdx.x; t <= a.last; t += kThreads)\n"
+    "      edges[t] = static_cast<int>(lo);\n"
+    "}\n\n"
+    "template <bool kVec>\n__global__")
+_K1_GRID = "  const unsigned grid = static_cast<unsigned>(a.tiles < fill ? a.tiles : fill);"
+_K1_ENDS = [
+    ("template <bool kVec>\n__global__", _K1_ENDS_BLOCK),
+    ("  for (long long b = blockIdx.x; b < a.tiles; b += gridDim.x) {",
+     "  const unsigned main_blocks = gridDim.x - a.tiles / a.tiles_per_segment;\n"
+     "  if (blockIdx.x >= main_blocks) {\n"
+     "    ends_block(a, blockIdx.x - main_blocks);\n"
+     "    return;\n"
+     "  }\n"
+     "  for (long long b = blockIdx.x; b < a.tiles; b += main_blocks) {"),
+    ("        write_run(edges, prev + 1, bins[v][j], static_cast<int>(p0 + j), lane);",
+     "        const bool end = p0 + j == 0 || (bins[v][j] == a.last && prev < a.last);\n"
+     "        write_run(edges, prev + 1, end ? prev : bins[v][j], static_cast<int>(p0 + j), lane);"),
+    (_K1_GRID, _K1_GRID[:-1] + " + segments;"),
+]
+
+# name -> replacements applied to csrc/edges.cu
+K1_VARIANTS = {
+    "committed": [],
+    "first design: a thread a key": _K1_FIRST,
+    "scan, (b) head and tail runs by a block a segment": _K1_ENDS,
+    "scan, streaming loads": [
+        ("*reinterpret_cast<const uint4*>(keys + p0)", "__ldcs(reinterpret_cast<const uint4*>(keys + p0))"),
+        ("bin_of(keys[p0 + j], a)", "bin_of(__ldcs(keys + p0 + j), a)")],
+    "scan, 4 keys a thread": [("constexpr int kVecs = 2;", "constexpr int kVecs = 1;")],
+    "scan, 16 keys a thread": [("constexpr int kVecs = 2;", "constexpr int kVecs = 4;")],
+    "scan, 4 blocks an SM": [("constexpr int kBlocksPerSm = 8;", "constexpr int kBlocksPerSm = 4;")],
+    "scan, 16 blocks an SM": [("constexpr int kBlocksPerSm = 8;", "constexpr int kBlocksPerSm = 16;")],
+    "scan, a block a tile": [(_K1_GRID, "  const unsigned grid = static_cast<unsigned>(a.tiles);")],
+    "scan, warp writes runs from 8 probes": [("constexpr int kLongRun = 32;", "constexpr int kLongRun = 8;")],
+    "scan, warp writes runs from 128 probes": [("constexpr int kLongRun = 32;",
+                                                "constexpr int kLongRun = 128;")],
+    "search everywhere": _k1_search(),
+    "search, 128 threads a block": _k1_search(128),
+    "search where its warps fit in one wave (132 SMs x 64), scan elsewhere": _k1_search(
+        cond="num_probes * static_cast<long long>(segments) <= sms * 64"),
+}
+
+
 def _ring(stages, kib, blocks):
     """The committed ring (4 stages of 16 KB, 3 blocks an SM) with other numbers."""
     repl = [("constexpr int kStages = 4;", f"constexpr int kStages = {stages};"),
@@ -331,8 +456,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--variants", action="store_true",
                         help="also build and time the design variants")
-    parser.add_argument("--kernels", choices=("all", "emit-raster", "stack-compact"),
-                        default="all", help="which kernels to time (default: all four)")
+    parser.add_argument("--kernels", choices=("all", "emit-raster", "stack-compact", "edges"),
+                        default="all", help="which kernels to time (default: all five)")
     parser.add_argument("--match", default="",
                         help="of the variants, only 'committed' and those whose name holds this")
     args = parser.parse_args()
@@ -363,31 +488,34 @@ def main() -> int:
 
         call()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            if not apart:
-                torch.cuda._sleep(HEAD_START_CYCLES)
-            for _ in range(reps):
-                call()  # results are dropped: no allocation grows while the trace runs
-                if apart:
-                    torch.cuda.synchronize()
-            torch.cuda.synchronize()
-        # A trace may hold fewer records of a kernel than it was launched, and
-        # single records that are too short: each kernel's median record,
-        # times its launches a call.
-        records = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key:
-                records.setdefault(e.key, []).append(e.self_device_time_total)
-        us = 0.0
-        for key, times in records.items():
-            per_call = max(1, round(len(times) / reps))
-            if len(times) < 0.9 * reps * per_call:
-                print(f"    (the trace holds {len(times)} records of {key[:40]} "
-                      f"for {reps} calls)", flush=True)
-            us += statistics.median(times) * per_call
-        if us <= 0:
-            raise RuntimeError("the profiler trace holds no device time")
-        return us / 1e3
+        # A trace may come back without one device record: trace again.
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                if not apart:
+                    torch.cuda._sleep(HEAD_START_CYCLES)
+                for _ in range(reps):
+                    call()  # results are dropped: no allocation grows while the trace runs
+                    if apart:
+                        torch.cuda.synchronize()
+                torch.cuda.synchronize()
+            # A trace may hold fewer records of a kernel than it was launched,
+            # and single records that are too short: each kernel's median
+            # record, times its launches a call.
+            records = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key:
+                    records.setdefault(e.key, []).append(e.self_device_time_total)
+            us = 0.0
+            for key, times in records.items():
+                per_call = max(1, round(len(times) / reps))
+                if len(times) < 0.9 * reps * per_call:
+                    print(f"    (the trace holds {len(times)} records of {key[:40]} "
+                          f"for {reps} calls)", flush=True)
+                us += statistics.median(times) * per_call
+            if us > 0:
+                return us / 1e3
+            print("    (a trace held no device time: traced again)", flush=True)
+        raise RuntimeError("three profiler traces held no device time")
 
     # Removed at the end, or by its finalizer when a variant raises.
     tmp = tempfile.TemporaryDirectory(prefix="gsr_variants_")
@@ -428,6 +556,8 @@ def main() -> int:
         emit_raster(tools, scene, cam0, cfg)
     if args.kernels in ("all", "stack-compact"):
         stack_compact(tools, raw_scene, scene, cam0)
+    if args.kernels in ("all", "edges"):
+        edges(tools, raw_scene, scene, cam0)
     tmp.cleanup()
     return 0
 
@@ -683,6 +813,80 @@ def stack_compact(tools, raw_scene, scene, cam0):
             call()
             torch.cuda.synchronize()
             equal = torch.equal(bits(out), bits(c["k7_plain"]))
+            line += f"; {name} {device_ms(call):.4f} (bit-equal: {equal})"
+        print(line, flush=True)
+
+
+def edges(tools, raw_scene, scene, cam0):
+    """K1 through its wrapper and, with --variants, its variants, on the
+    sorted keys of camera 0's flat list and of its settled banded list."""
+    torch, dev, cb = tools["torch"], tools["dev"], tools["cb"]
+    device_ms, build = tools["device_ms"], tools["build"]
+    from cudagaussianrenderer_torch import RenderConfig, Renderer
+    from cudagaussianrenderer_torch.ops import ranges
+    from cudagaussianrenderer_torch.ops.banded import build_tile_pairs_banded, sort_pairs_banded
+    from cudagaussianrenderer_torch.ops.binning import build_tile_pairs
+    from cudagaussianrenderer_torch.ops.geometry import as_u32_i64
+    from cudagaussianrenderer_torch.ops.projection import project_splats
+    from cudagaussianrenderer_torch.ops.sorting import sort_pairs
+    from cudagaussianrenderer_torch.render import _band_rows_tensor, _splat_colors, camera_tensors
+
+    G = 16
+    cfg, bcfg = RenderConfig(), RenderConfig(sort_bands=G)
+    cam = camera_tensors(cam0.camera_data(), dev)
+    clip = project_splats(scene.means, scene.scales, scene.quats, cam, cfg,
+                          opacities=scene.opacities)
+    colors = _splat_colors(scene, cam)
+    keys, _, _ = sort_pairs(build_tile_pairs(clip, colors, scene.opacities, cfg, 3932160))
+    r = Renderer(raw_scene, bcfg)
+    for _ in range(3):  # as chip_smoke.py phase 7 settles them
+        before = (r.capacity, r.compact_capacity)
+        r.render(cam0)
+        if (r.capacity, r.compact_capacity) == before:
+            break
+    bpairs, _, _ = build_tile_pairs_banded(
+        clip, colors, scene.opacities, bcfg, r.capacity,
+        _band_rows_tensor(r.band_rows, bcfg, dev), compact_capacity=r.compact_capacity)
+    bkeys, _, _ = sort_pairs_banded(bpairs, G)
+    del r, bpairs
+    probes = cfg.total_tiles + 1
+    hbm = 3.35e12  # H100 SXM data sheet, bytes a second
+    cases = {"flat": (keys[0], 1), "segmented": (bkeys[0], G)}
+
+    print("== K1 of this checkout, through its wrapper (device ms; bound by bytes)")
+    for name, (k, segs) in cases.items():
+        bins = torch.clamp(as_u32_i64(k) >> 19, max=probes - 1)
+        bins = bins + (torch.arange(k.shape[0], device=dev) // (k.shape[0] // segs)) * probes
+        bound = (4 * k.shape[0] + 4 * segs * probes) / hbm * 1e3
+        for _ in range(2):
+            k1 = device_ms(lambda: ranges.tile_edges(k, probes, 19, segments=segs))
+            plain = device_ms(lambda: ranges._edges_torch(k, probes, 19, segments=segs), 10)
+            lib = device_ms(lambda: torch.cumsum(
+                torch.bincount(bins, minlength=segs * probes).view(segs, probes), 1), 10)
+            print(f"  {name}: {segs} x {k.shape[0] // segs} keys, {probes} probes: K1 {k1:.4f} "
+                  f"(bound {bound:.4f}, {bound / k1:.0%}); plain {plain:.4f}; "
+                  f"bincount + cumsum {lib:.4f}", flush=True)
+    if not tools["variants"]:
+        return
+
+    print("== K1 variants (device ms; bit-equal to the plain version)")
+    for tag, repl in tools["chosen"](K1_VARIANTS).items():
+        fn, regs = build("edges", tag, repl, "gsr_edges",
+                         [cb.P, cb.I64, cb.I32, cb.I32, cb.I32, cb.P, cb.P])
+        line = f"  {tag}: registers {'/'.join(regs)}"
+        for name, (k, segs) in cases.items():
+            out = torch.empty((segs, probes), dtype=torch.int32, device=dev)
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def call():
+                code = fn(k.data_ptr(), k.shape[0] // segs, segs, 19, probes, out.data_ptr(),
+                          stream)
+                if code:
+                    raise RuntimeError(f"launch failed: {code}")
+            out.fill_(-1)
+            call()
+            torch.cuda.synchronize()
+            equal = torch.equal(out, ranges._edges_torch(k, probes, 19, segs).view(segs, probes))
             line += f"; {name} {device_ms(call):.4f} (bit-equal: {equal})"
         print(line, flush=True)
 

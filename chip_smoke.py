@@ -28,7 +28,18 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
      the same scene and cameras, with the launch counts of K5-K8, K1, K4;
      after its warm-up frames the parity of phase 5 once more, at the
      capacities and band rows the timed frames start from (the K5-K8 times
-     and bounds of the per-kernel line are taken there).
+     and bounds of the per-kernel line are taken there);
+  8. scene IO on the card: the scene of phase 4 written as raw values to a
+     .ply, loaded by the native and by the Python importer (held to
+     tests/test_native.py's rule against each other), rendered against
+     phase 4's frame; round-tripped through .splat and rendered against
+     the degree-0 scene; a frame written as PNG and read back bit-equal;
+  9. the bench (cudagaussianrenderer_torch.bench) at 1M splats over 8
+     orbit frames, stage times on: its JSON lines come before the
+     per-kernel line.
+
+Phases 2 and 5 also hold K1 on the corner cases of tests/torch_port_cases.py
+(flat, then segmented; aligned keys and a view 4 bytes off).
 
 Every entry of the per-kernel line carries ``ms`` (CUDA events around
 back-to-back wrapper calls, which for a kernel shorter than a wrapper call
@@ -72,6 +83,9 @@ K4_LSB_BOUND = 4
 # traced as spin_kernel): about 20 ms, enough for the host to queue 50
 # wrapper calls under the profiler.
 HEAD_START_CYCLES = 40_000_000
+# One unit in the last place of 0.5: how far the native .ply importer's
+# fused colour f_dc * SH_C0 + 0.5 may lie from the Python importer's.
+COLOR_ULP = 2.0 ** -24
 # Main-path frame against the plain-version frame, and the golden scenes:
 # the repo's rule (tests/test_pipeline.py:20-27).
 PIX_TOL, BAD_FRAC = 8, 0.02
@@ -202,6 +216,126 @@ def bits_equal(a, b) -> bool:
     a = a.contiguous().view(torch.int32) if a.dtype == torch.float32 else a
     b = b.contiguous().view(torch.int32) if b.dtype == torch.float32 else b
     return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def edge_corner_parity(segmented):
+    """K1 on the corner cases of tests/torch_port_cases.py, each against
+    _edges_torch bit for bit, from aligned keys and from a view 4 bytes
+    off a 16-byte boundary: each case whole in the segmented mode, or
+    each of its segments alone as a flat list."""
+    import numpy as np
+    import torch
+
+    from cudagaussianrenderer_torch.ops import ranges
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_cases import EDGE_CORNER_CASES, edge_corner_keys
+
+    lists = 0
+    for name in EDGE_CORNER_CASES:
+        keys, segments, num_probes, shift = edge_corner_keys(name)
+        n = keys.shape[0] // segments
+        parts = [(keys, segments)] if segmented else [
+            (keys[s_ * n:(s_ + 1) * n], 1) for s_ in range(segments)]
+        for part, segs in parts:
+            for offset in (0, 1):
+                buf = np.concatenate([np.zeros(offset, np.uint32), part]).view(np.int32)
+                k = torch.from_numpy(buf).cuda()[offset:]
+                got = ranges.tile_edges(k, num_probes, shift, segments=segs)
+                want = ranges._edges_torch(k, num_probes, shift, segments=segs)
+                require(bits_equal(got, want),
+                        f"K1 differs from its plain version on corner case {name} "
+                        f"({'segmented' if segmented else 'flat'}, offset {4 * offset} B)")
+                lists += 1
+    log(f"  K1 corner cases, {'segmented' if segmented else 'flat'}: "
+        f"{len(EDGE_CORNER_CASES)} cases, {lists} lists (aligned and 4 bytes off): exact")
+
+
+def scene_io(scene, cams, direct_frame, config, dev):
+    """Phase 8.  ``scene`` is phase 4's scene (built directly from the
+    seed's arrays), ``direct_frame`` its frame of camera 0."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cudagaussianrenderer_torch import Renderer, load_gaussian_ply, write_gaussian_ply
+    from cudagaussianrenderer_torch.models.scene import random_scene_arrays
+    from cudagaussianrenderer_torch.splatfile import load_splat, write_splat
+    from cudagaussianrenderer_torch.utils.native import native_available
+    from cudagaussianrenderer_torch.utils.png import read_png, write_png
+
+    def frame0(s):
+        """Camera 0 with a Renderer, after a frame that sizes its capacity."""
+        r = Renderer(s, config)
+        r.render(cams[0])
+        img = r.render(cams[0])
+        require(r.last_candidates <= r.capacity, "the loaded scene's frame saturated")
+        return img
+
+    a = random_scene_arrays(scene.count, seed=0, min_scale=0.002, max_scale=0.053, extent=4.0,
+                            sh_degree=3)
+    with tempfile.TemporaryDirectory(prefix="gsr_scene_io_") as tmp:
+        ply = Path(tmp) / "scene.ply"
+        t0 = time.perf_counter()
+        with np.errstate(divide="ignore"):  # an opacity of 0 or 1 in f32 has an infinite logit
+            write_gaussian_ply(
+                ply, a["means"], np.log(a["scales"]), a["quats_xyzw"][:, [3, 0, 1, 2]],
+                np.log(a["opacities"]) - np.log1p(-a["opacities"]), a["sh"][:, 0, :],
+                np.transpose(a["sh"][:, 1:, :], (0, 2, 1)))
+        log(f"  wrote {ply.stat().st_size / 1e6:.1f} MB of raw values in "
+            f"{time.perf_counter() - t0:.2f} s")
+        loaded = {}
+        importers = (("native", True), ("Python", False)) if native_available() else (
+            ("Python", False),)
+        if len(importers) == 1:
+            log("  the native loader is not available on this machine (make -C native "
+                "failed): the Python importer only")
+        for name, native in importers:
+            t0 = time.perf_counter()
+            loaded[name] = load_gaussian_ply(ply, use_native=native, device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            log(f"  {name} importer: {loaded[name].count} splats, SH degree "
+                f"{loaded[name].sh_degree}, loaded onto the card in "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        py = loaded["Python"]
+        if "native" in loaded:
+            nat = loaded["native"]
+            require(nat.count == py.count and nat.sh_degree == py.sh_degree == 3,
+                    "the two importers load different counts or SH degrees")
+            require(torch.equal(nat.quats, py.quats), "the importers' quaternions differ")
+            for f in ("means", "scales", "opacities", "sh"):
+                torch.testing.assert_close(getattr(nat, f), getattr(py, f), rtol=1e-6, atol=0)
+            # The native build fuses f_dc * SH_C0 + 0.5 into one multiply-add,
+            # NumPy rounds twice: the two differ by up to one unit in the last
+            # place of the addend 0.5, which is no small relative error for a
+            # colour near 0 (the scene's colours are uniform in [0, 1]).
+            torch.testing.assert_close(nat.colors, py.colors, rtol=1e-6, atol=COLOR_ULP)
+            np.testing.assert_allclose(nat.bounds_min, py.bounds_min, rtol=1e-5)
+            np.testing.assert_allclose(nat.bounds_max, py.bounds_max, rtol=1e-5)
+            log("  native vs Python: quaternions and counts exact, float fields within "
+                f"rtol 1e-6 (colours also within {COLOR_ULP:.3g} absolute), bounds within 1e-5")
+        img = frame0(py)
+        check("loaded .ply frame vs phase 4 frame", img, direct_frame)
+        splat = Path(tmp) / "scene.splat"
+        t0 = time.perf_counter()
+        write_splat(splat, py)
+        back = load_splat(splat, device=dev)
+        log(f"  .splat round trip: {splat.stat().st_size / 1e6:.1f} MB in "
+            f"{time.perf_counter() - t0:.2f} s; the format keeps no SH, so its frame is held "
+            "against the scene's own at SH degree 0")
+        flat = dataclasses.replace(scene, sh=None, sh_degree=0)
+        check(".splat frame vs degree-0 frame", frame0(back), frame0(flat))
+        png = Path(tmp) / "frame.png"
+        t0 = time.perf_counter()
+        write_png(png, img)
+        again = read_png(png)
+        require(again.shape == img.shape and np.array_equal(again, img),
+                "the PNG read back differs from the frame written")
+        log(f"  PNG round trip of the loaded frame: bit-equal, {png.stat().st_size / 1e6:.2f} MB, "
+            f"{time.perf_counter() - t0:.2f} s")
 
 
 def main() -> int:
@@ -362,12 +496,13 @@ def main() -> int:
         device_ms=trace_ms(lambda: ranges.tile_edges(keys[0], probes, 19), 50),
         plain_ms=cuda_ms(lambda: ranges._edges_torch(keys[0], probes, 19), 10),
         library_ms=cuda_ms(lambda: torch.cumsum(torch.bincount(bins, minlength=probes), 0), 20),
-        bytes=4 * capacity + 4 * probes,
+        bytes=4 * capacity + 4 * probes,  # the scan: each key read once, each edge written once
         max_abs_err=float((edges - edges_p).abs().max()),
     )
     log(f"  K1 edges over {capacity} keys, {probes} probes: exact={ok1}")
     if not ok1:
         raise AssertionError("K1 edges differ from the plain version")
+    edge_corner_parity(segmented=False)
 
     # K4
     starts, counts = edges[:-1], edges[1:] - edges[:-1]
@@ -671,6 +806,7 @@ def main() -> int:
         return found, k1b
 
     banded_parity(band_rows, bcap, ccap, must_fit=False)
+    edge_corner_parity(segmented=True)
 
     # K5-K8 on the huge-splat scene: roomy, pair-saturated, compact-saturated.
     hbcfg = RenderConfig(screen_size=1024, sort_bands=G)
@@ -803,6 +939,22 @@ def main() -> int:
         else:
             log(f"  {label}: device busy {busy / 4:.3f} ms/frame of {wall_ms:.3f} ms/frame, "
                 f"idle share {1 - busy / 4 / wall_ms:.3f}")
+
+    # ---- 8. scene IO on the card -------------------------------------------
+    log("== 8. scene IO: the 1M-splat SH-3 scene through .ply (native and Python "
+        "importers), .splat and PNG")
+    scene_io(scene, cams, frames[0], config, dev)
+
+    # ---- 9. the bench --------------------------------------------------------
+    log("== 9. bench: python -m cudagaussianrenderer_torch.bench 1000000 8")
+    from cudagaussianrenderer_torch import bench
+
+    t0 = time.perf_counter()
+    head = bench.main(["1000000", "8"])
+    require(not head["saturated"] and head["pairs_per_frame"] > 0 and "stages_ms" in head,
+            f"the bench's line is not a clean measurement: {head}")
+    log(f"  bench: {head['ms_per_frame']} ms/frame, {head['pairs_per_frame']} pairs/frame, "
+        f"in {time.perf_counter() - t0:.1f} s (its JSON lines above)")
 
     P = "cudagaussianrenderer_tpu/ops/"
     # name -> (source file, counted wrapper, path that runs it, TPU kernel)

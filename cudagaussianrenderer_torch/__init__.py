@@ -21,10 +21,13 @@ Each wrapper runs its kernel for CUDA tensors and its plain PyTorch
 version for CPU tensors.  Entry points default to the card; pass
 ``device="cpu"`` to run on the CPU.
 
-Quick start::
+Scenes come from a trained 3DGS ``.ply`` (``load_gaussian_ply``, through
+the native loader in native/ when it builds), an antimatter15 ``.splat``
+(``splatfile``; ``load_scene`` picks by extension) or ``random_scene``;
+``scene_ops`` edits them and ``utils.png`` writes frames.  Quick start::
 
-    from cudagaussianrenderer_torch import Camera, RenderConfig, Renderer, random_scene
-    scene = random_scene(100_000, seed=0)
+    from cudagaussianrenderer_torch import Camera, RenderConfig, Renderer, load_scene
+    scene = load_scene("scene.ply")
     cam = Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max)
     image = Renderer(scene, RenderConfig()).render(cam)  # [1024,1024,4] u8
 """
@@ -32,7 +35,9 @@ Quick start::
 from .config import RenderConfig
 from .models.camera import Camera, CameraController, InputState, orbit_cameras
 from .models.scene import GaussianScene, random_scene, scene_from_arrays, scene_from_numpy
+from .ply import load_gaussian_ply, write_gaussian_ply
 from .render import Renderer, render_frame, render_frame_multipass
+from .splatfile import load_scene
 
 __all__ = [
     "Camera",
@@ -41,12 +46,15 @@ __all__ = [
     "InputState",
     "RenderConfig",
     "Renderer",
+    "load_gaussian_ply",
+    "load_scene",
     "orbit_cameras",
     "random_scene",
     "render_frame",
     "render_frame_multipass",
     "scene_from_arrays",
     "scene_from_numpy",
+    "write_gaussian_ply",
 ]
 
 __version__ = "0.1.0"

@@ -4,11 +4,12 @@ The reference launches one thread per sorted pair and scatters range
 boundaries on key changes (evaluateTileRangesKernel,
 GaussianRender.cu:857-906).  The JAX package computes the same edges as a
 cumulative tile histogram on the MXU (``_hist_kernel``).  The port's
-kernel (csrc/edges.cu) goes back to boundary detection: with the keys
-sorted, thread i compares key i-1 and key i and writes edge i for every
-probe between their bins — one read of the keys, no atomics, no scan.
+kernel (csrc/edges.cu) uses the order of the sorted keys instead: a scan
+that compares neighbouring keys and writes edge i for every probe between
+the bins of keys i-1 and i (one read of the keys, no atomics, no scan of
+counts).
 
-Boundary detection needs sorted keys.  A band-segmented list
+That needs sorted keys.  A band-segmented list
 (ops.banded.sort_pairs_banded) is sorted within each of its G segments
 only, so for it the kernel runs in its segmented mode: every segment is
 a list of its own, with its own row of edges.
@@ -37,7 +38,7 @@ def _edges_torch(
     bins = bins + (torch.arange(keys.shape[0], device=keys.device) // seg) * num_probes
     counts = torch.bincount(bins, minlength=segments * num_probes).view(segments, num_probes)
     edges = torch.cumsum(counts[:, : num_probes - 1], 1)
-    edges = torch.cat([torch.zeros_like(edges[:, :1]), edges], 1).to(torch.int32)
+    edges = torch.cat([counts.new_zeros(segments, 1), edges], 1).to(torch.int32)
     return edges[0] if segments == 1 else edges
 
 

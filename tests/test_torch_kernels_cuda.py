@@ -23,7 +23,9 @@ from cudagaussianrenderer_torch.render import (
     _band_rows_tensor, _frame_pairs, _splat_colors, camera_tensors,
 )
 
-from torch_port_cases import COMPACT_CASES, COMPACT_CG, compact_counts, cull_run, widen
+from torch_port_cases import (
+    COMPACT_CASES, COMPACT_CG, EDGE_CORNER_CASES, compact_counts, cull_run, edge_corner_keys, widen,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -129,6 +131,33 @@ def test_segmented_edges_match_plain(dev):
     # A flat pass over the same keys would be wrong: they are not globally sorted.
     assert not torch.equal(ranges.tile_edges(k, num_probes, shift),
                            ranges._edges_torch(k, num_probes, shift))
+
+
+@pytest.mark.parametrize("name", list(EDGE_CORNER_CASES))
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "view-4-bytes-off"])
+def test_edges_corner_cases_match_plain(dev, name, offset):
+    """K1 on its corner cases, bit for bit; with ``offset`` the keys are a
+    view that starts 4 bytes past a 16-byte boundary (the scalar path)."""
+    keys, segments, num_probes, shift = edge_corner_keys(name)
+    buf = torch.from_numpy(np.concatenate([np.zeros(offset, np.uint32), keys]).view(np.int32))
+    k = buf.to(dev)[offset:]
+    assert (k.data_ptr() % 16 == 0) == (offset == 0)
+    got = ranges.tile_edges(k, num_probes, shift, segments=segments)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ranges._edges_torch(k, num_probes, shift, segments=segments))
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "view-4-bytes-off"])
+def test_edges_main_path_size_match_plain(dev, offset):
+    """K1 over as many keys as the main path's list, where the fixed grid
+    strides over many tiles a block, aligned and 4 bytes off."""
+    rng = np.random.default_rng(3)
+    keys = np.sort(rng.integers(0, 4099 << 19, 3_900_000, dtype=np.uint64)).astype(np.uint32)
+    buf = torch.from_numpy(np.concatenate([np.zeros(offset, np.uint32), keys]).view(np.int32))
+    k = buf.to(dev)[offset:]
+    got = ranges.tile_edges(k, 4097, 19)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ranges._edges_torch(k, 4097, 19))
 
 
 # (name, config, splats, seed, scene, band rows, capacity, compact capacity)
@@ -370,3 +399,32 @@ def test_frame_on_card_matches_golden_through_the_kernels(dev):
     want = golden_render(scene_to_numpy(scene), cam.camera_data(), cfg)
     diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
     assert (diff > 8).any(axis=-1).mean() <= 0.02
+
+
+def test_scene_ops_on_card_match_cpu(dev):
+    """Every scene op on the card gives the CPU's scene (tests/
+    test_torch_scene_ops.py holds the CPU's against the JAX package), the
+    rotated means within an ulp or two (cuBLAS may fuse the f64 3x3 product)."""
+    from cudagaussianrenderer_torch import scene_ops
+
+    cpu = pt.random_scene(300, seed=4, sh_degree=2, device="cpu").pad_to_multiple(256)
+    card = cpu.to(dev)
+    ops = [
+        lambda s: scene_ops.take(s, [3, 1, 299, 3]),
+        lambda s: scene_ops.crop(s, (-2, -2, -2), (2, 2, 2)),
+        lambda s: scene_ops.filter_opacity(s, 0.3),
+        lambda s: scene_ops.decimate(s, 50),
+        lambda s: scene_ops.decimate(s, 50, mode="random", seed=2),
+        lambda s: scene_ops.merge([s, pt.random_scene(20, seed=5, device=s.device)]),
+        lambda s: scene_ops.transform(s, translate=(1, 2, 3), scale=-1.5),
+        lambda s: scene_ops.transform(s, rotate_xyzw=np.array([0.1, -0.4, 0.3, 0.85])),
+    ]
+    for i, op in enumerate(ops):
+        want, got = op(cpu), op(card)
+        assert got.device.type == "cuda", i
+        assert (got.count, got.sh_degree) == (want.count, want.sh_degree), i
+        for f in ("scales", "quats", "opacities", "colors", "sh"):
+            a, b = getattr(got, f), getattr(want, f)
+            assert (a is None) == (b is None) and (a is None or torch.equal(a.cpu(), b)), (i, f)
+        torch.testing.assert_close(got.means.cpu(), want.means, rtol=2.5e-7, atol=0)
+

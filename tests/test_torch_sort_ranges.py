@@ -17,6 +17,8 @@ from cudagaussianrenderer_tpu.ops import ranges as jr
 from cudagaussianrenderer_tpu.ops import sorting as js
 from cudagaussianrenderer_tpu.ops.projection import project_splats as jx_project
 
+from torch_port_cases import EDGE_CORNER_CASES, edge_corner_keys
+
 
 def T(a) -> torch.Tensor:
     """A JAX or numpy array as a CPU tensor; uint32 words as int32 bits."""
@@ -59,6 +61,21 @@ def test_tile_edges_exact(num_probes, shift, n_live, n_pad):
     got = pr.tile_edges(T(keys), num_probes, shift)
     assert got.dtype == torch.int32 and got.shape == (num_probes,)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", list(EDGE_CORNER_CASES))
+def test_tile_edges_corner_cases_exact(name):
+    """K1's corner cases, segment by segment against the JAX kernel (which
+    takes one sorted list): tiles far apart, an all-sentinel segment, no
+    sentinels, lengths no multiple of 4, one probe, 33 probes, 4,097."""
+    keys, segments, num_probes, shift = edge_corner_keys(name)
+    n = keys.shape[0] // segments
+    got = pr.tile_edges(T(keys), num_probes, shift, segments=segments)
+    got = got.reshape(segments, num_probes)
+    assert got.dtype == torch.int32
+    for s in range(segments):
+        want = np.asarray(jr._edges_pallas(keys[s * n:(s + 1) * n], num_probes, shift, True))
+        np.testing.assert_array_equal(got[s].numpy(), want)
 
 
 def test_tile_edges_rejects_empty_probe_range():

@@ -74,3 +74,87 @@ def compact_counts(name, n, mc, seed=0):
     else:
         raise ValueError(name)
     return counts
+
+
+# K1's corner cases: name -> (segments, keys a segment, num_probes, shift).
+# Each builds [segments * n] uint32 keys, every segment sorted on its own.
+EDGE_CORNER_CASES = {
+    # Live keys in three tiles only: long runs of empty tiles between them.
+    "three-tiles": (1, 6000, 4097, 19),
+    # Segment 1 holds only sentinels: one run over every probe.
+    "all-sentinel-segment": (4, 3000, 4097, 19),
+    # No sentinel anywhere: the position past the last key closes the range.
+    "no-sentinels": (4, 2048, 4097, 19),
+    # Neither the segment length nor the key count a multiple of 4.
+    "odd-lengths": (3, 1001, 65, 0),
+    "one-probe": (2, 100, 1, 0),
+    # Runs of 32 probes and of 33, either side of the warp's share.
+    "33-probes": (3, 640, 33, 0),
+    "4097-probes": (2, 5000, 4097, 19),
+}
+
+
+def edge_corner_keys(name, seed=0):
+    """(keys [segments * n] uint32, segments, num_probes, shift) of one of
+    EDGE_CORNER_CASES."""
+    segments, n, num_probes, shift = EDGE_CORNER_CASES[name]
+    rng = np.random.default_rng(seed)
+    sentinel = np.uint64(0xFFFFFFFF)
+
+    def keyed(bins):
+        low = rng.integers(0, 1 << shift, bins.shape[0], dtype=np.uint64)
+        return (bins.astype(np.uint64) << np.uint64(shift)) | low
+
+    parts = []
+    for s in range(segments):
+        live = int(rng.integers(n // 4, n))
+        if name == "three-tiles":
+            bins = rng.choice(np.array([7, 1500, 3900]), live)
+        elif s == 1 and name in ("all-sentinel-segment", "33-probes"):
+            live, bins = 0, np.zeros(0, np.int64)
+        elif name == "no-sentinels":
+            live, bins = n, rng.integers(0, num_probes - 1, n)
+        elif name == "33-probes":
+            # Segment 0: every key in bin 0, so the first sentinel writes
+            # the 32 probes 1..32 (segment 1, all sentinels, writes all
+            # 33); segment 2: bin 1, so key 0 writes probes 0..1.
+            bins = np.full(live, s // 2)
+        else:
+            # A few bins past the probes, so that some live keys drop out.
+            bins = rng.integers(0, num_probes + 3, live)
+        seg = np.concatenate([np.sort(keyed(np.asarray(bins))),
+                              np.full(n - live, sentinel, np.uint64)])
+        parts.append(seg.astype(np.uint32))
+    return np.concatenate(parts), segments, num_probes, shift
+
+
+SCENE_ARRAYS = ("means", "scales", "quats", "opacities", "colors", "sh")
+SCENE_META = ("sh_degree", "count", "bounds_min", "bounds_max")
+
+
+def scene_numpy(scene):
+    """The fields of a scene of either package as NumPy: its arrays (packed
+    quaternions as uint32, however each package carries them) and its
+    metadata."""
+    out = {}
+    for f in SCENE_ARRAYS:
+        a = getattr(scene, f)
+        if a is not None:
+            a = a.cpu().numpy() if hasattr(a, "cpu") and hasattr(a, "numpy") else np.asarray(a)
+            a = a.view(np.uint32) if a.dtype == np.int32 else a
+        out[f] = a
+    out.update({f: getattr(scene, f) for f in SCENE_META})
+    return out
+
+
+def assert_same_scene(got, want):
+    """Two scenes (the port's and the JAX package's) hold the same arrays
+    bit for bit and the same metadata."""
+    g, w = scene_numpy(got), scene_numpy(want)
+    for f in SCENE_ARRAYS:
+        assert (g[f] is None) == (w[f] is None), f
+        if g[f] is not None:
+            assert g[f].dtype == w[f].dtype and g[f].shape == w[f].shape, f
+            np.testing.assert_array_equal(g[f], w[f], err_msg=f)
+    for f in SCENE_META:
+        assert g[f] == w[f], (f, g[f], w[f])
