@@ -35,8 +35,21 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
      phase 4's frame; round-tripped through .splat and rendered against
      the degree-0 scene; a frame written as PNG and read back bit-equal;
   9. the bench (cudagaussianrenderer_torch.bench) at 1M splats over 8
-     orbit frames, stage times on: its JSON lines come before the
-     per-kernel line.
+     orbit frames, stage times on: its headline from replays of one frame
+     captured as a CUDA graph (after an eager frame under the sync debug
+     mode "error"), every graphed frame byte-equal to the eager frame of its
+     camera, beside the eager figure and the device-busy time of a traced
+     graphed orbit; its JSON lines come before the per-kernel line;
+ 10. the CLI and the viewer at full width, in this process through
+     cudagaussianrenderer_torch.cli.main: render of the 1M-splat procedural
+     scene (SH 3) against Renderer.render, byte-equal; then phase 4's scene
+     as a .ply: render against Renderer.render (byte-equal), render --bands
+     16 against the flat frame, orbit -n 4 --transforms --colmap read back
+     by load_posed, eval of the scene written back by the CLI's scene writer
+     against that dataset, compare of two of its frames, serve on a free
+     port (GET /, /frame.png, /stats, a drag by POST /input), with the
+     launch counts of K1-K4 (K5-K8 for --bands); and diff.ssim on the card
+     with TF32 allowed against the CPU.
 
 Phases 2 and 5 also hold K1 on the corner cases of tests/torch_port_cases.py
 (flat, then segmented; aligned keys and a view 4 bytes off).
@@ -139,22 +152,6 @@ def cuda_ms(fn, reps, warmup=1):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def device_busy_ms(fn):
-    """Summed device time (ms) of every kernel and copy that ``fn()``
-    enqueues, from torch.profiler; None when the trace holds no device
-    time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 if us > 0 else None
 
 
 def trace_ms(fn, reps):
@@ -338,6 +335,227 @@ def scene_io(scene, cams, direct_frame, config, dev):
             f"{time.perf_counter() - t0:.2f} s")
 
 
+def http(url, data=None, timeout=120):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data)
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read()
+
+
+def cli_and_viewer(dev, n_splats=1_000_000, size=1024):
+    """Phase 10, on ``dev`` (the card; the CPU only to rehearse it small).
+
+    The CLI's own procedural scene (default scales 0.01-0.5) at 1M splats
+    has about 126M candidate pairs a frame, far past the pair-list ceiling,
+    so every frame of it renders truncated: it is rendered once, against
+    Renderer.render.  The other checks run on phase 4's scene (the bench's
+    scales, SH 3), written as a .ply as phase 8 writes it."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+    import threading
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from cudagaussianrenderer_torch import RenderConfig, Renderer, cli, load_posed, random_scene
+    from cudagaussianrenderer_torch.diff import ssim
+    from cudagaussianrenderer_torch.models.camera import Camera
+    from cudagaussianrenderer_torch.models.scene import random_scene_arrays
+    from cudagaussianrenderer_torch.ops import banded, expand, ranges, raster
+    from cudagaussianrenderer_torch.ply import write_gaussian_ply
+    from cudagaussianrenderer_torch.splatfile import load_scene
+    from cudagaussianrenderer_torch.utils.png import read_png
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_cases import free_port
+
+    flat_k = (ranges.tile_edges, expand.interleave_rows, expand.emit_slots, raster.rasterize_tiles)
+    band_k = (banded.interleave_rows_padded, banded.stack_rows, banded.compact_rows,
+              expand.emit_slots_banded, ranges.tile_edges, raster.rasterize_tiles)
+
+    def run(argv, counted=flat_k):
+        """cli.main(argv) with the counts of ``counted`` set to 0 just before;
+        returns (the counts just after, stdout, stderr)."""
+        for fn in counted:
+            fn.launches = 0
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            cli.main([str(a) for a in argv] + common(argv[0]))
+        launches = {fn.__name__: fn.launches for fn in counted}
+        log(f"  cli {' '.join(str(a) for a in argv[:2])} ...: {time.perf_counter() - t0:.1f} s, "
+            f"launches {launches}")
+        for line in err.getvalue().splitlines():
+            if "truncated" in line:
+                log(f"    it said: {line}")
+        # (The wrappers count launches of their kernels: none on the CPU.)
+        require(dev.type != "cuda" or all(n >= 1 for n in launches.values()),
+                f"cli {argv[0]}: a kernel of its path never launched: {launches}")
+        return launches, out.getvalue(), err.getvalue()
+
+    def common(command):
+        flags = ["--device", dev.type]
+        return flags if command == "compare" else flags + ["--size", str(size)]
+
+    config = RenderConfig(screen_size=size)
+    with tempfile.TemporaryDirectory(prefix="gsr_cli_") as tmp:
+        tmp = Path(tmp)
+        # The CLI's procedural scene: its first frame overflows the fresh
+        # Renderer's list, so the CLI renders again at the grown capacity,
+        # as a Renderer's second frame does.
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run(["render", "--procedural", n_splats, "--sh-degree", 3, "-o", tmp / "proc.png"])
+            pscene = random_scene(n_splats, seed=0, sh_degree=3, device=dev)
+            r = Renderer(pscene, config, device=dev)
+            pcam = Camera(aspect=1.0).framed(pscene.bounds_min, pscene.bounds_max)
+            r.render(pcam)
+            want = r.render(pcam)
+        del pscene, r
+        got = read_png(tmp / "proc.png")
+        require(np.array_equal(got, want),
+                "cli render --procedural differs from Renderer.render of the same scene")
+        ceiling = sum("capacity ceiling" in str(w.message) for w in caught)
+        log(f"  render --procedural {n_splats} --sh-degree 3: byte-equal to a Renderer's second "
+            f"frame ({ceiling} ceiling warnings)")
+
+        # Phase 4's scene as a .ply of raw values, and written back by the
+        # CLI's scene writer (activations inverted) for eval.
+        a = random_scene_arrays(n_splats, seed=0, min_scale=0.002, max_scale=0.053, extent=4.0,
+                                sh_degree=3)
+        ply = tmp / "scene.ply"
+        with np.errstate(divide="ignore"):
+            write_gaussian_ply(
+                ply, a["means"], np.log(a["scales"]), a["quats_xyzw"][:, [3, 0, 1, 2]],
+                np.log(a["opacities"]) - np.log1p(-a["opacities"]), a["sh"][:, 0, :],
+                np.transpose(a["sh"][:, 1:, :], (0, 2, 1)))
+        del a
+        scene = load_scene(ply, device=dev)
+        cam = Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max)
+
+        run(["render", ply, "-o", tmp / "flat.png"])
+        flat = read_png(tmp / "flat.png")
+        want = Renderer(scene, config, device=dev).render(cam)
+        require(np.array_equal(flat, want), "cli render differs from Renderer.render")
+        log("  render scene.ply: byte-equal to Renderer.render of the loaded scene")
+        run(["render", ply, "--bands", 16, "-o", tmp / "banded.png"], counted=band_k)
+        check("render --bands 16 vs render", read_png(tmp / "banded.png"), flat)
+
+        ws = tmp / "ws"
+        run(["orbit", ply, "-n", 4, "--transforms", "--colmap", "-o", ws])
+        ds = load_posed(ws)
+        from cudagaussianrenderer_torch.models.camera import orbit_cameras
+        ocams = orbit_cameras(scene.bounds_min, scene.bounds_max, 4)
+        require(len(ds.cameras) == 4 and ds.images.shape == (4, size, size, 3),
+                f"load_posed: {len(ds.cameras)} cameras, images {ds.images.shape}")
+        for got_c, want_c in zip(ds.cameras, ocams):
+            gd, wd = got_c.camera_data(), want_c.camera_data()
+            require(all(np.allclose(gd[k], wd[k], rtol=1e-5, atol=1e-5) for k in gd),
+                    "a camera of the COLMAP workspace differs from the orbit's")
+        log(f"  orbit -n 4 --transforms --colmap: load_posed gives 4 cameras equal to the "
+            f"orbit's (within 1e-5), {ds.points_xyz.shape[0]} SfM points")
+        from cudagaussianrenderer_torch import dataset
+        tcams, _ = dataset.load_dataset(ws)
+        for got_c, want_c in zip(tcams, ocams):
+            gd, wd = got_c.camera_data(), want_c.camera_data()
+            require(all(np.allclose(gd[k], wd[k], rtol=1e-5, atol=1e-5) for k in gd),
+                    "a camera of transforms.json differs from the orbit's")
+        del ds
+
+        gt = tmp / "written.ply"
+        cli._write_scene(scene, gt)
+        _, _, err = run(["eval", gt, "--dataset", ws])
+        m = re.search(r"PSNR ([0-9.]+|inf) dB, SSIM ([0-9.]+)", err)
+        require(m is not None, f"eval printed no scores: {err}")
+        psnr, ss = float(m.group(1)), float(m.group(2))
+        log(f"  eval of the written-back scene against the orbit: PSNR {psnr} dB, SSIM {ss}")
+        require(psnr > 40 and ss > 0.99, f"eval: PSNR {psnr}, SSIM {ss}")
+
+        f0, f1 = ws / "images" / "frame_0000.png", ws / "images" / "frame_0001.png"
+        _, out, _ = run(["compare", f0, f0], counted=())
+        same = json.loads(out)
+        require(same["max_delta"] == 0 and same["ssim"] == 1.0, f"compare of a frame: {same}")
+        _, out, _ = run(["compare", f0, f1], counted=())
+        diff = json.loads(out)
+        log(f"  compare frame 0 with itself: {same}; with frame 1: {diff}")
+        try:
+            run(["compare", f0, f1, "--max-delta", diff["max_delta"] - 1], counted=())
+            raise AssertionError("compare did not exit past --max-delta")
+        except SystemExit as e:
+            require("exceeds" in str(e), f"compare exited with {e}")
+
+        port = free_port()
+        base = f"http://127.0.0.1:{port}"
+        for fn in flat_k:
+            fn.launches = 0
+        server = threading.Thread(
+            target=cli.main, daemon=True,
+            args=(["serve", str(ply), "--port", str(port), "--fps-cap", "1000"]
+                  + common("serve"),))
+        t0 = time.perf_counter()
+        server.start()
+        for _ in range(600):
+            try:
+                page = http(base + "/", timeout=5).decode()
+                break
+            except OSError:
+                server.join(0.1)
+        try:
+            require("/stream" in page, "GET / is not the viewer page")
+            img0 = read_png(http(base + "/frame.png"))
+            stats0 = json.loads(http(base + "/stats"))
+
+            def wait_frames(n):
+                target = json.loads(http(base + "/stats"))["frame"] + n
+                deadline = time.monotonic() + 60
+                while json.loads(http(base + "/stats"))["frame"] < target:
+                    require(time.monotonic() < deadline, "the viewer's loop stalled")
+                    time.sleep(0.01)
+
+            for pointer, buttons in (([size // 10, size // 2], "left"),
+                                     ([size * 9 // 10, size // 2], "left"),
+                                     ([size * 9 // 10, size // 2], "none")):
+                http(base + "/input", json.dumps({"pointer": pointer, "buttons": buttons}).encode())
+                wait_frames(2)
+            img1 = read_png(http(base + "/frame.png"))
+            stats1 = json.loads(http(base + "/stats"))
+        finally:
+            http(base + "/quit", b"{}")
+        server.join(120)
+        require(not server.is_alive(), "serve did not stop on /quit")
+        moved = float((np.abs(img0.astype(int) - img1.astype(int)) > 4).any(axis=-1).mean())
+        launches = {fn.__name__: fn.launches for fn in flat_k}
+        log(f"  serve: {stats1['frame'] + 1} frames in {time.perf_counter() - t0:.1f} s, stats "
+            f"{stats1}; first frame {img0.shape}, {moved:.3f} of pixels moved after a drag; "
+            f"launches {launches}")
+        require(img0.shape == (size, size, 4) and img0[..., 3].max() == 255,
+                "the viewer's frame is blank or misshapen")
+        require(stats0["capacity"] > 0 and stats1["pairs"] > 0, f"viewer stats {stats1}")
+        require(moved > 0.01, "the drag did not move the view")
+        require(dev.type != "cuda" or all(n >= 1 for n in launches.values()),
+                f"serve launches {launches}")
+
+    # diff.ssim with TF32 allowed (phase 1 turned it off): float32 on the card.
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(flat[..., :3].astype(np.float32) / 255.0)
+    y = torch.from_numpy(np.clip(flat[..., :3] / 255.0 + rng.normal(0, 0.02, flat[..., :3].shape),
+                                 0, 1).astype(np.float32))
+    half = torch.full((size, size, 3), 0.5)
+    worst = 0.0
+    for u, v in ((x, y), (x, x), (half, half), (half, y)):
+        got_s = float(ssim(u.to(dev), v.to(dev)))
+        worst = max(worst, abs(got_s - float(ssim(u, v))))
+        require(-1.0 <= got_s <= 1.0, f"ssim {got_s} outside [-1, 1]")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"  ssim on the card with TF32 allowed vs the CPU: max |diff| {worst:.2e} (bound 1e-5)")
+    require(worst <= 1e-5, f"ssim on the card differs from the CPU by {worst}")
+
+
 def main() -> int:
     import torch
 
@@ -346,6 +564,7 @@ def main() -> int:
         return 1
 
     from cudagaussianrenderer_torch import RenderConfig, Renderer, orbit_cameras, random_scene
+    from cudagaussianrenderer_torch.bench import device_busy_ms
     from cudagaussianrenderer_torch.golden import golden_render, scene_to_numpy
     from cudagaussianrenderer_torch.models.camera import Camera
     from cudagaussianrenderer_torch.ops import banded, expand, ranges, raster
@@ -953,8 +1172,25 @@ def main() -> int:
     head = bench.main(["1000000", "8"])
     require(not head["saturated"] and head["pairs_per_frame"] > 0 and "stages_ms" in head,
             f"the bench's line is not a clean measurement: {head}")
-    log(f"  bench: {head['ms_per_frame']} ms/frame, {head['pairs_per_frame']} pairs/frame, "
+    require(head["method"] == "cuda_graph", f"the bench's headline is not graphed: {head}")
+    require(head["graph_frames_equal"] == 8,
+            f"{head['graph_frames_equal']} of 8 graphed frames equal the eager ones")
+    busy = head["device_busy_ms"]
+    log(f"  bench: graphed {head['ms_per_frame']} ms/frame ({head['value']} FPS), eager "
+        f"{head['eager_ms_per_frame']} ms/frame ({head['eager_fps']} FPS), eager / graphed "
+        f"{head['eager_ms_per_frame'] / head['ms_per_frame']:.2f}; device busy in a trace of "
+        f"one graphed orbit: "
+        + ("not measured (the trace holds no device time)" if busy is None else
+           f"{busy} ms/frame, idle share {1 - busy / head['ms_per_frame']:.3f}"))
+    log(f"  every graphed frame byte-equal to its camera's eager frame; no host sync in the "
+        f"frame under the sync debug mode; {head['pairs_per_frame']} pairs/frame, "
         f"in {time.perf_counter() - t0:.1f} s (its JSON lines above)")
+
+    # ---- 10. the CLI and the viewer at full width ------------------------------
+    log("== 10. CLI and viewer: 1M splats SH-3 at 1024x1024 through cli.main")
+    t0 = time.perf_counter()
+    cli_and_viewer(dev)
+    log(f"  phase 10 in {time.perf_counter() - t0:.1f} s")
 
     P = "cudagaussianrenderer_tpu/ops/"
     # name -> (source file, counted wrapper, path that runs it, TPU kernel)

@@ -24,7 +24,21 @@ version for CPU tensors.  Entry points default to the card; pass
 Scenes come from a trained 3DGS ``.ply`` (``load_gaussian_ply``, through
 the native loader in native/ when it builds), an antimatter15 ``.splat``
 (``splatfile``; ``load_scene`` picks by extension) or ``random_scene``;
-``scene_ops`` edits them and ``utils.png`` writes frames.  Quick start::
+``scene_ops`` edits them and ``utils.png`` writes frames.  Posed-image
+datasets (a NeRF-synthetic ``transforms.json`` or a COLMAP workspace) load
+with ``load_posed`` (``dataset``, ``colmap``); ``diff.ssim`` scores frames
+against them.
+
+The command line is ``python -m cudagaussianrenderer_torch.cli`` (or
+``gsplat-torch``), the JAX package's CLI: ``render``, ``orbit``,
+``bench``, ``interactive``, ``serve`` (``viewer``: the live viewer, an HTTP
+server whose loop thread renders on the card), ``convert``, ``merge``,
+``eval`` and ``compare``, each with ``--device {cuda,cpu}``.  ``fit`` and
+``render --depth`` wait for the differentiable path.
+
+The bench, ``python -m cudagaussianrenderer_torch.bench``, replays one
+frame captured as a CUDA graph for each orbit camera (``render_frame_tensors``
+is the frame's device part).  Quick start::
 
     from cudagaussianrenderer_torch import Camera, RenderConfig, Renderer, load_scene
     scene = load_scene("scene.ply")
@@ -33,6 +47,7 @@ the native loader in native/ when it builds), an antimatter15 ``.splat``
 """
 
 from .config import RenderConfig
+from .dataset import load_posed
 from .models.camera import Camera, CameraController, InputState, orbit_cameras
 from .models.scene import GaussianScene, random_scene, scene_from_arrays, scene_from_numpy
 from .ply import load_gaussian_ply, write_gaussian_ply
@@ -47,6 +62,7 @@ __all__ = [
     "RenderConfig",
     "Renderer",
     "load_gaussian_ply",
+    "load_posed",
     "load_scene",
     "orbit_cameras",
     "random_scene",

@@ -11,21 +11,39 @@ a splat, the reference's Lilly Boquet density) at ``--size``² over
 every camera's candidate count with 0.5% headroom, rounded up to 4,096
 slots (or, with --force-fallback-capacity, 4.6 pairs a splat).
 
-Headline: ``render_frame`` over the orbit's frames issued back to back
-with one synchronise at the end, best of 3 repetitions, host clock.  It
-prints bench.py's headline JSON keys (``metric``, ``value``, ``unit``,
-``vs_baseline``, ``ms_per_frame``, ``pairs_per_frame``,
-``pairs_per_sec_M``, ``capacity``, ``devices``) plus ``saturated`` (a
-frame's candidates exceeded the capacity, so it rendered truncated) and
-``device`` (the card's name and power limit, or "cpu"); then, unless
---no-stages, the same object with ``stages_ms`` (``Renderer.profile_frame``
-of the first camera under the reference's stage names: CUDA events on the
-card, the host clock where ``device`` is "cpu") as the last line.
+Headline, on the card: one flat frame (``render_frame_tensors`` at that
+capacity) captured as a CUDA graph and replayed once for each camera, the
+camera refilled before each replay by a device-to-device copy from a
+[frames, CAMERA_FLOATS] table built on the card once; one synchronise at
+the end of the orbit, best of 3 repetitions, host clock.  That is bench.py's
+jitted scan over the orbit: the host's dispatch is left out, so the figure
+is the card's pace.  Before the capture one eager frame runs under
+``torch.cuda.set_sync_debug_mode("error")``, so a host sync or a
+host-to-device copy inside the frame raises.  A capture or replay that
+fails raises too: the bench never falls back to the eager figure.
 
-The default device is the card, and without one the bench raises: it
-never falls back.  ``--device cpu`` runs the kernels' plain versions, for
-a smoke test of this script; its times are the CPU's and its stage times
-come from the host clock.
+It prints bench.py's headline JSON keys (``metric``, ``value``, ``unit``,
+``vs_baseline``, ``ms_per_frame``, ``pairs_per_frame``,
+``pairs_per_sec_M``, ``capacity``, ``devices``) plus
+``method`` ("cuda_graph" on the card, "eager" on the CPU);
+``eager_fps`` and ``eager_ms_per_frame``, the same orbit as ``render_frame``
+calls issued from Python back to back (the host's launch rate);
+``graph_frames_equal``, how many graphed frames equal the eager frame of
+their camera byte for byte (it raises after printing unless all do);
+``device_busy_ms``, kernel and copy time per frame in a torch.profiler trace
+of one graphed orbit (null if the trace holds none);
+``saturated`` (a frame's candidates exceeded the capacity, so it rendered
+truncated) and ``device`` (the card's name and power limit, or "cpu").
+``pairs_per_frame`` and ``saturated`` come from each replay's counts.
+Then, unless --no-stages, the same object with ``stages_ms``
+(``Renderer.profile_frame`` of the first camera under the reference's stage
+names: CUDA events on the card, the host clock where ``device`` is "cpu")
+as the last line.
+
+The default device is the card, and without one the bench raises.
+``--device cpu`` runs the eager loop over the kernels' plain versions, for a
+smoke test of this script: ``method`` "eager", the CPU's times, null
+``graph_frames_equal`` and ``device_busy_ms``.
 """
 
 from __future__ import annotations
@@ -36,6 +54,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from .config import RenderConfig
@@ -43,7 +62,9 @@ from .models.camera import orbit_cameras
 from .models.scene import random_scene
 from .ops.binning import splat_row_packs, splat_tile_rects
 from .ops.projection import project_splats
-from .render import Renderer, camera_tensors, render_frame
+from .render import (
+    Renderer, camera_array, camera_tensors, camera_views, render_frame, render_frame_tensors,
+)
 from .utils.device import resolve_device
 
 T_START = time.monotonic()
@@ -83,6 +104,74 @@ def probe_capacity(scene, cams, config: RenderConfig, dev) -> int:
     return capacity
 
 
+class GraphedOrbit:
+    """One flat frame captured as a CUDA graph over a static camera buffer,
+    replayed once for each camera of ``cams``.
+
+    The kernel wrappers' launch counters count the capture, not the
+    replays: a replay runs on the card without calling any wrapper.
+    """
+
+    def __init__(self, scene, cams, config: RenderConfig, capacity: int, dev: torch.device):
+        self.table = torch.from_numpy(
+            np.stack([camera_array(c.camera_data()) for c in cams])).to(dev)
+        self.cam = self.table[0].clone()
+        views = camera_views(self.cam)
+
+        def frame():
+            image, aux = render_frame_tensors(scene, views, config, capacity)
+            return image, torch.stack([aux["num_pairs"], aux["num_candidates"]])
+
+        torch.cuda.synchronize(dev)
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            frame()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        # PyTorch's recipe: warm up on a side stream, so that every lazy
+        # initialisation (the kernels' libraries, their cached device
+        # attributes, the sort's workspace) happens before the capture.
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                frame()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.image, self.counts = frame()
+        self.frames = len(cams)
+
+    def run(self, images: bool = False):
+        """Replay every camera; returns ([frames, 2] (num_pairs,
+        num_candidates) on the card, and each frame's image copied out of
+        the static output when ``images``).  Nothing waits for the card."""
+        stats = torch.empty((self.frames, 2), dtype=self.counts.dtype, device=self.counts.device)
+        out = []
+        for i in range(self.frames):
+            self.cam.copy_(self.table[i])
+            self.graph.replay()
+            stats[i].copy_(self.counts)
+            if images:
+                out.append(self.image.clone())
+        return stats, out
+
+
+def device_busy_ms(fn) -> float | None:
+    """Summed device time (ms) of every kernel and copy that ``fn()``
+    enqueues, from a torch.profiler trace; None if the trace holds none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 if us > 0 else None
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("n_splats", nargs="?", type=int, default=1_000_000)
@@ -115,22 +204,39 @@ def main(argv=None) -> dict:
 
     cam_data = [c.camera_data() for c in cams]
 
-    def orbit():
-        """Every frame issued back to back; one synchronise at the end."""
-        auxes = [render_frame(scene, cd, config, capacity, device=dev)[1] for cd in cam_data]
-        stats = torch.stack([torch.stack([a["num_pairs"], a["num_candidates"]]) for a in auxes])
-        sync()
-        return stats
+    def eager_orbit(images=False):
+        """Every frame issued from Python back to back; nothing waits."""
+        outs = [render_frame(scene, cd, config, capacity, device=dev) for cd in cam_data]
+        stats = torch.stack([torch.stack([a["num_pairs"], a["num_candidates"]])
+                             for _, a in outs])
+        return stats, [img for img, _ in outs] if images else []
 
-    _log("warming the orbit...")
-    orbit()
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        stats = orbit()
-        best = min(best, time.perf_counter() - t0)
+    def best_of_3(orbit):
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            stats, _ = orbit()
+            sync()
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3 / args.frames, stats
+
+    _log("warming the eager orbit...")
+    _, eager_frames = eager_orbit(images=cuda)
+    eager_ms, stats = best_of_3(eager_orbit)
+    graph_equal = busy = None
+    if cuda:
+        _log("capturing the frame as a CUDA graph...")
+        graphed = GraphedOrbit(scene, cams, config, capacity, dev)
+        _, graph_frames = graphed.run(images=True)
+        graph_equal = sum(bool(torch.equal(a, b)) for a, b in zip(graph_frames, eager_frames))
+        del graph_frames
+        ms_per_frame, stats = best_of_3(graphed.run)
+        busy = device_busy_ms(graphed.run)
+        busy = None if busy is None else busy / args.frames
+    else:
+        ms_per_frame = eager_ms
+    del eager_frames
     stats = stats.cpu()
-    ms_per_frame = best * 1e3 / args.frames
     fps = 1e3 / ms_per_frame
     pairs_per_frame = int(stats[:, 0].double().mean())
     saturated = int(stats[:, 1].max()) > capacity
@@ -144,16 +250,25 @@ def main(argv=None) -> dict:
         "unit": "frames/s",
         # > 1: a higher sorted-pair throughput than the reference's.
         "vs_baseline": round(pairs_per_sec / REF_PAIRS_PER_SEC, 3),
-        "ms_per_frame": round(ms_per_frame, 2),
+        "ms_per_frame": round(ms_per_frame, 3),
         "pairs_per_frame": pairs_per_frame,
         "pairs_per_sec_M": round(pairs_per_sec / 1e6, 1),
         "capacity": capacity,
         "devices": 1,
+        "method": "cuda_graph" if cuda else "eager",
+        "eager_fps": round(1e3 / eager_ms, 2),
+        "eager_ms_per_frame": round(eager_ms, 3),
+        "graph_frames_equal": graph_equal,
+        "device_busy_ms": None if busy is None else round(busy, 3),
         "saturated": saturated,
         "device": device_line(dev),
     }
     print(json.dumps(result), flush=True)
-    _log(f"headline: {result['value']} FPS ({result['ms_per_frame']} ms/frame)")
+    _log(f"headline ({result['method']}): {result['value']} FPS ({result['ms_per_frame']} "
+         f"ms/frame); eager {result['eager_fps']} FPS ({result['eager_ms_per_frame']} ms/frame)")
+    if cuda and graph_equal != args.frames:
+        raise RuntimeError(f"only {graph_equal} of {args.frames} graphed frames equal the eager "
+                           "frames of their cameras")
     if not args.stages:
         return result
 

@@ -209,9 +209,10 @@ def tiles_to_image(tile_rgba: torch.Tensor, config: RenderConfig) -> torch.Tenso
     rgb = img[..., :3]
     alpha = img[..., 3:4]
     if config.background is not None:
-        # Channel 3 carries per-pixel transmittance in this mode.
-        bg = torch.tensor(config.background, dtype=torch.float32, device=img.device)
-        rgb = rgb + alpha * bg
+        # Channel 3 carries per-pixel transmittance in this mode.  The
+        # colour's three floats enter as scalars, so no host-to-device copy
+        # sits in the frame.
+        rgb = rgb + torch.stack([alpha[..., 0] * c for c in config.background], dim=-1)
         alpha = torch.ones_like(alpha)
     if config.gamma is not None:
         rgb = torch.pow(torch.clamp(rgb, 0.0, 1.0), config.gamma)

@@ -64,19 +64,32 @@ _CAMERA_FIELDS = (
 )
 
 
-def camera_tensors(camera_data: dict, device) -> Dict[str, torch.Tensor]:
-    """Camera.camera_data() (NumPy) -> float32 tensors on ``device``, in
-    one host-to-device copy."""
-    flat = np.concatenate(
+# Floats of one camera in camera_array's layout.
+CAMERA_FLOATS = sum(int(np.prod(shape)) for _, shape in _CAMERA_FIELDS)
+
+
+def camera_array(camera_data: dict) -> np.ndarray:
+    """Camera.camera_data() -> its [CAMERA_FLOATS] float32 fields, flat."""
+    return np.concatenate(
         [np.asarray(camera_data[k], np.float32).reshape(-1) for k, _ in _CAMERA_FIELDS]
     )
-    t = torch.from_numpy(flat).to(device)
+
+
+def camera_views(flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The camera dict the stages take, as views into one [CAMERA_FLOATS]
+    float32 tensor: refilling ``flat`` in place moves the camera."""
     out, off = {}, 0
     for k, shape in _CAMERA_FIELDS:
         n = int(np.prod(shape))
-        out[k] = t[off : off + n].reshape(shape)
+        out[k] = flat[off : off + n].reshape(shape)
         off += n
     return out
+
+
+def camera_tensors(camera_data: dict, device) -> Dict[str, torch.Tensor]:
+    """Camera.camera_data() (NumPy) -> float32 tensors on ``device``, in
+    one host-to-device copy."""
+    return camera_views(torch.from_numpy(camera_array(camera_data)).to(device))
 
 
 def _splat_colors(scene: GaussianScene, cam: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -265,15 +278,43 @@ def render_frame(
     rows.  ``compact_capacity`` sizes the compacted splat axis (0 = 2x the
     splat count).  The aux dict then also holds ``band_totals`` and
     ``band_splats`` ([G] unclamped per-band pair and splat counts).
+
+    The host's part: the camera and the band rows go to the device here,
+    then render_frame_tensors runs the frame.
+    """
+    dev = resolve_device(device)
+    if config.sort_bands > 1:
+        band_rows = _band_rows_tensor(band_rows, config, dev)
+    return render_frame_tensors(
+        scene.to(dev), camera_tensors(camera_data, dev), config, capacity,
+        band_rows=band_rows, compact_capacity=compact_capacity,
+    )
+
+
+def render_frame_tensors(
+    scene: GaussianScene,
+    cam: Dict[str, torch.Tensor],
+    config: RenderConfig,
+    capacity: int,
+    *,
+    band_rows: Optional[torch.Tensor] = None,
+    compact_capacity: int = 0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The device part of render_frame, on the device of ``scene``: the
+    camera as the tensors of camera_tensors or camera_views, and, for a
+    banded frame, ``band_rows`` as a [G + 1] int32 tensor on that device.
+
+    It copies nothing from the host and waits for nothing on the device,
+    so a CUDA graph can capture it (the bench replays one per camera).
     """
     banded = config.sort_bands > 1
-    dev = resolve_device(device)
-    capacity = round_capacity(capacity, dev, bands=config.sort_bands if banded else 1)
-    scene = scene.to(dev)
-    cam = camera_tensors(camera_data, dev)
+    capacity = round_capacity(
+        capacity, scene.means.device, bands=config.sort_bands if banded else 1
+    )
     aux = {}
     if banded:
-        band_rows = _band_rows_tensor(band_rows, config, dev)
+        if band_rows is None:
+            raise ValueError("a banded frame needs band_rows as a device tensor")
         pairs, sorted_attrs, starts, counts, aux["band_totals"], aux["band_splats"] = (
             _frame_pairs_banded(scene, cam, config, capacity, band_rows, compact_capacity)
         )
@@ -371,6 +412,9 @@ class Renderer:
             self.MAX_CAPACITY,
         )
         self.saturated = False
+        # Whether the last frame (with check_saturation) overflowed a list
+        # and so rendered truncated; its lists are grown for the next one.
+        self.last_truncated = False
         self.stats = {name: 0.0 for name in STAGE_NAMES}
         self.frame_count = 0
         self.profiled_count = 0
@@ -466,6 +510,7 @@ class Renderer:
         elif check_saturation:
             candidates = int(aux["num_candidates"])
             self.last_candidates = candidates
+            self.last_truncated = candidates > self.capacity
             if candidates > self.MAX_CAPACITY:
                 warn_capacity_ceiling(self, candidates)
             if self.adaptive_capacity:
@@ -487,6 +532,8 @@ class Renderer:
         if candidates > self.MAX_CAPACITY:
             warn_capacity_ceiling(self, candidates)
         band_max = int(totals.max())
+        self.last_truncated = (band_max > self.capacity // g
+                               or int(splats.max()) > self.compact_capacity // g)
         # Compacted-splat axis: grow if any band's in-band splat count
         # exceeds its share (same doubling semantics).
         if int(splats.max()) > self.compact_capacity // g:

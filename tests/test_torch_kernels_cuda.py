@@ -428,3 +428,53 @@ def test_scene_ops_on_card_match_cpu(dev):
             assert (a is None) == (b is None) and (a is None or torch.equal(a.cpu(), b)), (i, f)
         torch.testing.assert_close(got.means.cpu(), want.means, rtol=2.5e-7, atol=0)
 
+
+
+@pytest.mark.parametrize("cfg_kw", [dict(screen_size=128),
+                                    dict(screen_size=128, background=(1.0, 1.0, 1.0))],
+                         ids=["flat", "background"])
+def test_graphed_orbit_equals_eager(dev, cfg_kw):
+    """The bench's CUDA graph: two orbit frames at 128x128 replayed from one
+    capture (after an eager frame under the sync debug mode "error") are
+    byte-equal to the eager frames of their cameras; the wrappers count the
+    capture, not the replays."""
+    from cudagaussianrenderer_torch.bench import GraphedOrbit
+
+    scene = pt.random_scene(2000, seed=0, min_scale=0.002, max_scale=0.053,
+                            device=dev).pad_to_multiple(4096)
+    cfg = pt.RenderConfig(**cfg_kw)
+    cams = pt.orbit_cameras(scene.bounds_min, scene.bounds_max, 2)
+    eager = [pt.render_frame(scene, c.camera_data(), cfg, 131072) for c in cams]
+    counted = (ranges.tile_edges, expand.interleave_rows, expand.emit_slots,
+               raster.rasterize_tiles)
+    graphed = GraphedOrbit(scene, cams, cfg, 131072, dev)
+    before = [fn.launches for fn in counted]
+    for _ in range(2):
+        stats, images = graphed.run(images=True)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counted] == before
+    for (want, aux), got, st in zip(eager, images, stats.tolist()):
+        assert torch.equal(got, want)
+        assert st == [int(aux["num_pairs"]), int(aux["num_candidates"])]
+
+
+def test_ssim_on_card_with_tf32_allowed_matches_cpu(dev):
+    """diff.ssim gives float32 results on the card whatever the TF32 flags
+    say: within 1e-5 of the CPU, and within [-1, 1] on a flat image."""
+    from cudagaussianrenderer_torch.diff import ssim
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        rng = np.random.default_rng(0)
+        a = rng.uniform(0, 1, (256, 192, 3)).astype(np.float32)
+        b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1).astype(np.float32)
+        flat = np.full(a.shape, 0.5, np.float32)
+        for x, y in ((a, b), (a, a), (flat, flat), (flat, b)):
+            got = ssim(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+            want = ssim(torch.from_numpy(x), torch.from_numpy(y))
+            assert got.device.type == "cuda"
+            assert abs(float(got) - float(want)) <= 1e-5
+            assert -1.0 <= float(got) <= 1.0
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags

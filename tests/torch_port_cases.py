@@ -1,10 +1,33 @@
 """Cases shared by the port's CPU parity tests against the JAX package and
 the card-only kernel tests: clip-data edits for the emit tests (each returns
 a function that changes a dict of per-splat clip-data arrays, numpy or
-torch, in place) and per-band candidate counts for the band compaction.
-Imports neither jax nor the JAX package."""
+torch, in place) and per-band candidate counts for the band compaction;
+and two helpers of the CLI and viewer tests: the suite's image rule and a
+free port.  Imports neither jax nor the JAX package."""
+
+import socket
 
 import numpy as np
+import pytest
+import torch
+
+# The suite's image rule (tests/test_pipeline.py:20-28).
+PIX_TOL, BAD_FRAC = 8, 0.02
+
+
+def image_close(got, want, msg=""):
+    """At most BAD_FRAC of the pixels differ by more than PIX_TOL levels."""
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    bad = (diff > PIX_TOL).any(axis=-1).mean()
+    assert bad <= BAD_FRAC, f"{msg}: {bad:.4f} of pixels differ by more than {PIX_TOL}"
+
+
+def free_port() -> int:
+    """A TCP port free on the loopback now: test files run in parallel, so a
+    server under test never takes a fixed one."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def cull_run(lo, hi):
@@ -158,3 +181,15 @@ def assert_same_scene(got, want):
             np.testing.assert_array_equal(g[f], w[f], err_msg=f)
     for f in SCENE_META:
         assert g[f] == w[f], (f, g[f], w[f])
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's tests with one PyTorch CPU thread, then restore the
+    count.  The suite runs files in parallel workers; each worker's
+    PyTorch otherwise starts a thread per core, and the oversubscribed
+    thread pools spin against each other (a 1 s CLI test took 120 s)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
