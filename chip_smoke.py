@@ -49,7 +49,20 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
      against that dataset, compare of two of its frames, serve on a free
      port (GET /, /frame.png, /stats, a drag by POST /input), with the
      launch counts of K1-K4 (K5-K8 for --bands); and diff.ssim on the card
-     with TF32 allowed against the CPU.
+     with TF32 allowed against the CPU;
+ 11. the differentiable path and fitting: at 128x128 (350 splats, SH 3)
+     build_structure on the card equal to the CPU's, and render_diff's
+     image, depth and gradients (every DiffSplats leaf, CameraDeltas,
+     Exposure) within DIFF_IMG_TOL and DIFF_GRAD_RTOL of the CPU's; then
+     through cli.main at 1024x1024 on phase 10's files: render --depth of
+     the scene's .ply (and render_diff's RGB of that view against
+     Renderer.render, the image rule), fit --dataset of the COLMAP
+     workspace from its 100,000 SfM points (SH 3, --optimizer 3dgs,
+     densify, --holdout 2, checkpoints; FIT_STEPS steps), --resume to
+     FIT_STEPS + FIT_RESUME_STEPS, and --refine-poses --refine-exposure
+     --export-poses; the fitted .ply loaded and rendered; seconds a step,
+     peak memory, k_max, capacity, candidates, remat and the K1-K3 launches
+     a step, beside the card's name and power limit.
 
 Phases 2 and 5 also hold K1 on the corner cases of tests/torch_port_cases.py
 (flat, then segmented; aligned keys and a view 4 bytes off).
@@ -102,6 +115,17 @@ COLOR_ULP = 2.0 ** -24
 # Main-path frame against the plain-version frame, and the golden scenes:
 # the repo's rule (tests/test_pipeline.py:20-27).
 PIX_TOL, BAD_FRAC = 8, 0.02
+# Phase 11, the differentiable path on the card against the CPU on the same
+# inputs and structure: render_diff's image and depth (absolute), and each
+# gradient's max |diff| against its leaf's max |grad| (the card sums a
+# pair's gradient into its splat by atomics, in another order).
+DIFF_IMG_TOL, DIFF_GRAD_RTOL = 1e-5, 1e-4
+# Phase 11's fit at full width: steps, densify and checkpoint period, the
+# steps a resume adds, and the steps of the pose and exposure refinement;
+# the pair-list capacity (the CLI's default, 16 slots a splat, is below the
+# ~2.3M candidates of a view of the 100,000 SfM points).
+FIT_STEPS, FIT_DENSIFY_EVERY, FIT_RESUME_STEPS, FIT_REFINE_STEPS = 30, 5, 15, 3
+FIT_CAPACITY = 4 << 20
 
 
 def log(*args):
@@ -335,6 +359,40 @@ def scene_io(scene, cams, direct_frame, config, dev):
             f"{time.perf_counter() - t0:.2f} s")
 
 
+def sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_cli(dev, argv, counted):
+    """cli.main(argv) with the counts of the wrappers ``counted`` set to 0
+    just before; returns (the counts just after, stdout, stderr, seconds).
+    On the card every counted kernel must have launched."""
+    import contextlib
+    import io
+
+    from cudagaussianrenderer_torch import cli
+
+    for fn in counted:
+        fn.launches = 0
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        cli.main([str(a) for a in argv])
+    seconds = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    log(f"  cli {' '.join(str(a) for a in argv[:2])} ...: {seconds:.1f} s, launches {launches}")
+    for line in err.getvalue().splitlines():
+        if "truncated" in line:
+            log(f"    it said: {line}")
+    # (The wrappers count launches of their kernels: none on the CPU.)
+    require(dev.type != "cuda" or all(n >= 1 for n in launches.values()),
+            f"cli {argv[0]}: a kernel of its path never launched: {launches}")
+    return launches, out.getvalue(), err.getvalue(), seconds
+
+
 def http(url, data=None, timeout=120):
     import urllib.request
 
@@ -343,18 +401,17 @@ def http(url, data=None, timeout=120):
         return r.read()
 
 
-def cli_and_viewer(dev, n_splats=1_000_000, size=1024):
-    """Phase 10, on ``dev`` (the card; the CPU only to rehearse it small).
+def cli_and_viewer(dev, tmp, n_splats=1_000_000, size=1024):
+    """Phase 10, on ``dev`` (the card; the CPU only to rehearse it small),
+    its files in the directory ``tmp``: phase 11 reuses the scene's .ply and
+    the COLMAP workspace.
 
     The CLI's own procedural scene (default scales 0.01-0.5) at 1M splats
     has about 126M candidate pairs a frame, far past the pair-list ceiling,
     so every frame of it renders truncated: it is rendered once, against
     Renderer.render.  The other checks run on phase 4's scene (the bench's
     scales, SH 3), written as a .ply as phase 8 writes it."""
-    import contextlib
-    import io
     import re
-    import tempfile
     import threading
     import warnings
 
@@ -378,166 +435,148 @@ def cli_and_viewer(dev, n_splats=1_000_000, size=1024):
               expand.emit_slots_banded, ranges.tile_edges, raster.rasterize_tiles)
 
     def run(argv, counted=flat_k):
-        """cli.main(argv) with the counts of ``counted`` set to 0 just before;
-        returns (the counts just after, stdout, stderr)."""
-        for fn in counted:
-            fn.launches = 0
-        out, err = io.StringIO(), io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            cli.main([str(a) for a in argv] + common(argv[0]))
-        launches = {fn.__name__: fn.launches for fn in counted}
-        log(f"  cli {' '.join(str(a) for a in argv[:2])} ...: {time.perf_counter() - t0:.1f} s, "
-            f"launches {launches}")
-        for line in err.getvalue().splitlines():
-            if "truncated" in line:
-                log(f"    it said: {line}")
-        # (The wrappers count launches of their kernels: none on the CPU.)
-        require(dev.type != "cuda" or all(n >= 1 for n in launches.values()),
-                f"cli {argv[0]}: a kernel of its path never launched: {launches}")
-        return launches, out.getvalue(), err.getvalue()
+        launches, out, err, _ = run_cli(dev, [*argv, *common(argv[0])], counted)
+        return launches, out, err
 
     def common(command):
         flags = ["--device", dev.type]
         return flags if command == "compare" else flags + ["--size", str(size)]
 
     config = RenderConfig(screen_size=size)
-    with tempfile.TemporaryDirectory(prefix="gsr_cli_") as tmp:
-        tmp = Path(tmp)
-        # The CLI's procedural scene: its first frame overflows the fresh
-        # Renderer's list, so the CLI renders again at the grown capacity,
-        # as a Renderer's second frame does.
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            run(["render", "--procedural", n_splats, "--sh-degree", 3, "-o", tmp / "proc.png"])
-            pscene = random_scene(n_splats, seed=0, sh_degree=3, device=dev)
-            r = Renderer(pscene, config, device=dev)
-            pcam = Camera(aspect=1.0).framed(pscene.bounds_min, pscene.bounds_max)
-            r.render(pcam)
-            want = r.render(pcam)
-        del pscene, r
-        got = read_png(tmp / "proc.png")
-        require(np.array_equal(got, want),
-                "cli render --procedural differs from Renderer.render of the same scene")
-        ceiling = sum("capacity ceiling" in str(w.message) for w in caught)
-        log(f"  render --procedural {n_splats} --sh-degree 3: byte-equal to a Renderer's second "
-            f"frame ({ceiling} ceiling warnings)")
+    # The CLI's procedural scene: its first frame overflows the fresh
+    # Renderer's list, so the CLI renders again at the grown capacity,
+    # as a Renderer's second frame does.
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        run(["render", "--procedural", n_splats, "--sh-degree", 3, "-o", tmp / "proc.png"])
+        pscene = random_scene(n_splats, seed=0, sh_degree=3, device=dev)
+        r = Renderer(pscene, config, device=dev)
+        pcam = Camera(aspect=1.0).framed(pscene.bounds_min, pscene.bounds_max)
+        r.render(pcam)
+        want = r.render(pcam)
+    del pscene, r
+    got = read_png(tmp / "proc.png")
+    require(np.array_equal(got, want),
+            "cli render --procedural differs from Renderer.render of the same scene")
+    ceiling = sum("capacity ceiling" in str(w.message) for w in caught)
+    log(f"  render --procedural {n_splats} --sh-degree 3: byte-equal to a Renderer's second "
+        f"frame ({ceiling} ceiling warnings)")
 
-        # Phase 4's scene as a .ply of raw values, and written back by the
-        # CLI's scene writer (activations inverted) for eval.
-        a = random_scene_arrays(n_splats, seed=0, min_scale=0.002, max_scale=0.053, extent=4.0,
-                                sh_degree=3)
-        ply = tmp / "scene.ply"
-        with np.errstate(divide="ignore"):
-            write_gaussian_ply(
-                ply, a["means"], np.log(a["scales"]), a["quats_xyzw"][:, [3, 0, 1, 2]],
-                np.log(a["opacities"]) - np.log1p(-a["opacities"]), a["sh"][:, 0, :],
-                np.transpose(a["sh"][:, 1:, :], (0, 2, 1)))
-        del a
-        scene = load_scene(ply, device=dev)
-        cam = Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max)
+    # Phase 4's scene as a .ply of raw values, and written back by the
+    # CLI's scene writer (activations inverted) for eval.
+    a = random_scene_arrays(n_splats, seed=0, min_scale=0.002, max_scale=0.053, extent=4.0,
+                            sh_degree=3)
+    ply = tmp / "scene.ply"
+    with np.errstate(divide="ignore"):
+        write_gaussian_ply(
+            ply, a["means"], np.log(a["scales"]), a["quats_xyzw"][:, [3, 0, 1, 2]],
+            np.log(a["opacities"]) - np.log1p(-a["opacities"]), a["sh"][:, 0, :],
+            np.transpose(a["sh"][:, 1:, :], (0, 2, 1)))
+    del a
+    scene = load_scene(ply, device=dev)
+    cam = Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max)
 
-        run(["render", ply, "-o", tmp / "flat.png"])
-        flat = read_png(tmp / "flat.png")
-        want = Renderer(scene, config, device=dev).render(cam)
-        require(np.array_equal(flat, want), "cli render differs from Renderer.render")
-        log("  render scene.ply: byte-equal to Renderer.render of the loaded scene")
-        run(["render", ply, "--bands", 16, "-o", tmp / "banded.png"], counted=band_k)
-        check("render --bands 16 vs render", read_png(tmp / "banded.png"), flat)
+    run(["render", ply, "-o", tmp / "flat.png"])
+    flat = read_png(tmp / "flat.png")
+    want = Renderer(scene, config, device=dev).render(cam)
+    require(np.array_equal(flat, want), "cli render differs from Renderer.render")
+    log("  render scene.ply: byte-equal to Renderer.render of the loaded scene")
+    run(["render", ply, "--bands", 16, "-o", tmp / "banded.png"], counted=band_k)
+    check("render --bands 16 vs render", read_png(tmp / "banded.png"), flat)
 
-        ws = tmp / "ws"
-        run(["orbit", ply, "-n", 4, "--transforms", "--colmap", "-o", ws])
-        ds = load_posed(ws)
-        from cudagaussianrenderer_torch.models.camera import orbit_cameras
-        ocams = orbit_cameras(scene.bounds_min, scene.bounds_max, 4)
-        require(len(ds.cameras) == 4 and ds.images.shape == (4, size, size, 3),
-                f"load_posed: {len(ds.cameras)} cameras, images {ds.images.shape}")
-        for got_c, want_c in zip(ds.cameras, ocams):
-            gd, wd = got_c.camera_data(), want_c.camera_data()
-            require(all(np.allclose(gd[k], wd[k], rtol=1e-5, atol=1e-5) for k in gd),
-                    "a camera of the COLMAP workspace differs from the orbit's")
-        log(f"  orbit -n 4 --transforms --colmap: load_posed gives 4 cameras equal to the "
-            f"orbit's (within 1e-5), {ds.points_xyz.shape[0]} SfM points")
-        from cudagaussianrenderer_torch import dataset
-        tcams, _ = dataset.load_dataset(ws)
-        for got_c, want_c in zip(tcams, ocams):
-            gd, wd = got_c.camera_data(), want_c.camera_data()
-            require(all(np.allclose(gd[k], wd[k], rtol=1e-5, atol=1e-5) for k in gd),
-                    "a camera of transforms.json differs from the orbit's")
-        del ds
+    ws = tmp / "ws"
+    run(["orbit", ply, "-n", 4, "--transforms", "--colmap", "-o", ws])
+    ds = load_posed(ws)
+    from cudagaussianrenderer_torch.models.camera import orbit_cameras
+    ocams = orbit_cameras(scene.bounds_min, scene.bounds_max, 4)
+    require(len(ds.cameras) == 4 and ds.images.shape == (4, size, size, 3),
+            f"load_posed: {len(ds.cameras)} cameras, images {ds.images.shape}")
+    for got_c, want_c in zip(ds.cameras, ocams):
+        gd, wd = got_c.camera_data(), want_c.camera_data()
+        require(all(np.allclose(gd[k], wd[k], rtol=1e-5, atol=1e-5) for k in gd),
+                "a camera of the COLMAP workspace differs from the orbit's")
+    log(f"  orbit -n 4 --transforms --colmap: load_posed gives 4 cameras equal to the "
+        f"orbit's (within 1e-5), {ds.points_xyz.shape[0]} SfM points")
+    from cudagaussianrenderer_torch import dataset
+    tcams, _ = dataset.load_dataset(ws)
+    for got_c, want_c in zip(tcams, ocams):
+        gd, wd = got_c.camera_data(), want_c.camera_data()
+        require(all(np.allclose(gd[k], wd[k], rtol=1e-5, atol=1e-5) for k in gd),
+                "a camera of transforms.json differs from the orbit's")
+    del ds
 
-        gt = tmp / "written.ply"
-        cli._write_scene(scene, gt)
-        _, _, err = run(["eval", gt, "--dataset", ws])
-        m = re.search(r"PSNR ([0-9.]+|inf) dB, SSIM ([0-9.]+)", err)
-        require(m is not None, f"eval printed no scores: {err}")
-        psnr, ss = float(m.group(1)), float(m.group(2))
-        log(f"  eval of the written-back scene against the orbit: PSNR {psnr} dB, SSIM {ss}")
-        require(psnr > 40 and ss > 0.99, f"eval: PSNR {psnr}, SSIM {ss}")
+    gt = tmp / "written.ply"
+    cli._write_scene(scene, gt)
+    _, _, err = run(["eval", gt, "--dataset", ws])
+    m = re.search(r"PSNR ([0-9.]+|inf) dB, SSIM ([0-9.]+)", err)
+    require(m is not None, f"eval printed no scores: {err}")
+    psnr, ss = float(m.group(1)), float(m.group(2))
+    log(f"  eval of the written-back scene against the orbit: PSNR {psnr} dB, SSIM {ss}")
+    require(psnr > 40 and ss > 0.99, f"eval: PSNR {psnr}, SSIM {ss}")
 
-        f0, f1 = ws / "images" / "frame_0000.png", ws / "images" / "frame_0001.png"
-        _, out, _ = run(["compare", f0, f0], counted=())
-        same = json.loads(out)
-        require(same["max_delta"] == 0 and same["ssim"] == 1.0, f"compare of a frame: {same}")
-        _, out, _ = run(["compare", f0, f1], counted=())
-        diff = json.loads(out)
-        log(f"  compare frame 0 with itself: {same}; with frame 1: {diff}")
+    f0, f1 = ws / "images" / "frame_0000.png", ws / "images" / "frame_0001.png"
+    _, out, _ = run(["compare", f0, f0], counted=())
+    same = json.loads(out)
+    require(same["max_delta"] == 0 and same["ssim"] == 1.0, f"compare of a frame: {same}")
+    _, out, _ = run(["compare", f0, f1], counted=())
+    diff = json.loads(out)
+    log(f"  compare frame 0 with itself: {same}; with frame 1: {diff}")
+    try:
+        run(["compare", f0, f1, "--max-delta", diff["max_delta"] - 1], counted=())
+        raise AssertionError("compare did not exit past --max-delta")
+    except SystemExit as e:
+        require("exceeds" in str(e), f"compare exited with {e}")
+
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    for fn in flat_k:
+        fn.launches = 0
+    server = threading.Thread(
+        target=cli.main, daemon=True,
+        args=(["serve", str(ply), "--port", str(port), "--fps-cap", "1000"]
+              + common("serve"),))
+    t0 = time.perf_counter()
+    server.start()
+    for _ in range(600):
         try:
-            run(["compare", f0, f1, "--max-delta", diff["max_delta"] - 1], counted=())
-            raise AssertionError("compare did not exit past --max-delta")
-        except SystemExit as e:
-            require("exceeds" in str(e), f"compare exited with {e}")
+            page = http(base + "/", timeout=5).decode()
+            break
+        except OSError:
+            server.join(0.1)
+    try:
+        require("/stream" in page, "GET / is not the viewer page")
+        img0 = read_png(http(base + "/frame.png"))
+        stats0 = json.loads(http(base + "/stats"))
 
-        port = free_port()
-        base = f"http://127.0.0.1:{port}"
-        for fn in flat_k:
-            fn.launches = 0
-        server = threading.Thread(
-            target=cli.main, daemon=True,
-            args=(["serve", str(ply), "--port", str(port), "--fps-cap", "1000"]
-                  + common("serve"),))
-        t0 = time.perf_counter()
-        server.start()
-        for _ in range(600):
-            try:
-                page = http(base + "/", timeout=5).decode()
-                break
-            except OSError:
-                server.join(0.1)
-        try:
-            require("/stream" in page, "GET / is not the viewer page")
-            img0 = read_png(http(base + "/frame.png"))
-            stats0 = json.loads(http(base + "/stats"))
+        def wait_frames(n):
+            target = json.loads(http(base + "/stats"))["frame"] + n
+            deadline = time.monotonic() + 60
+            while json.loads(http(base + "/stats"))["frame"] < target:
+                require(time.monotonic() < deadline, "the viewer's loop stalled")
+                time.sleep(0.01)
 
-            def wait_frames(n):
-                target = json.loads(http(base + "/stats"))["frame"] + n
-                deadline = time.monotonic() + 60
-                while json.loads(http(base + "/stats"))["frame"] < target:
-                    require(time.monotonic() < deadline, "the viewer's loop stalled")
-                    time.sleep(0.01)
-
-            for pointer, buttons in (([size // 10, size // 2], "left"),
-                                     ([size * 9 // 10, size // 2], "left"),
-                                     ([size * 9 // 10, size // 2], "none")):
-                http(base + "/input", json.dumps({"pointer": pointer, "buttons": buttons}).encode())
-                wait_frames(2)
-            img1 = read_png(http(base + "/frame.png"))
-            stats1 = json.loads(http(base + "/stats"))
-        finally:
-            http(base + "/quit", b"{}")
-        server.join(120)
-        require(not server.is_alive(), "serve did not stop on /quit")
-        moved = float((np.abs(img0.astype(int) - img1.astype(int)) > 4).any(axis=-1).mean())
-        launches = {fn.__name__: fn.launches for fn in flat_k}
-        log(f"  serve: {stats1['frame'] + 1} frames in {time.perf_counter() - t0:.1f} s, stats "
-            f"{stats1}; first frame {img0.shape}, {moved:.3f} of pixels moved after a drag; "
-            f"launches {launches}")
-        require(img0.shape == (size, size, 4) and img0[..., 3].max() == 255,
-                "the viewer's frame is blank or misshapen")
-        require(stats0["capacity"] > 0 and stats1["pairs"] > 0, f"viewer stats {stats1}")
-        require(moved > 0.01, "the drag did not move the view")
-        require(dev.type != "cuda" or all(n >= 1 for n in launches.values()),
-                f"serve launches {launches}")
+        for pointer, buttons in (([size // 10, size // 2], "left"),
+                                 ([size * 9 // 10, size // 2], "left"),
+                                 ([size * 9 // 10, size // 2], "none")):
+            http(base + "/input", json.dumps({"pointer": pointer, "buttons": buttons}).encode())
+            wait_frames(2)
+        img1 = read_png(http(base + "/frame.png"))
+        stats1 = json.loads(http(base + "/stats"))
+    finally:
+        http(base + "/quit", b"{}")
+    server.join(120)
+    require(not server.is_alive(), "serve did not stop on /quit")
+    moved = float((np.abs(img0.astype(int) - img1.astype(int)) > 4).any(axis=-1).mean())
+    launches = {fn.__name__: fn.launches for fn in flat_k}
+    log(f"  serve: {stats1['frame'] + 1} frames in {time.perf_counter() - t0:.1f} s, stats "
+        f"{stats1}; first frame {img0.shape}, {moved:.3f} of pixels moved after a drag; "
+        f"launches {launches}")
+    require(img0.shape == (size, size, 4) and img0[..., 3].max() == 255,
+            "the viewer's frame is blank or misshapen")
+    require(stats0["capacity"] > 0 and stats1["pairs"] > 0, f"viewer stats {stats1}")
+    require(moved > 0.01, "the drag did not move the view")
+    require(dev.type != "cuda" or all(n >= 1 for n in launches.values()),
+            f"serve launches {launches}")
 
     # diff.ssim with TF32 allowed (phase 1 turned it off): float32 on the card.
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
@@ -554,6 +593,264 @@ def cli_and_viewer(dev, n_splats=1_000_000, size=1024):
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     log(f"  ssim on the card with TF32 allowed vs the CPU: max |diff| {worst:.2e} (bound 1e-5)")
     require(worst <= 1e-5, f"ssim on the card differs from the CPU by {worst}")
+
+
+def diff_card_vs_cpu(dev):
+    """Phase 11, part 1: the differentiable path on ``dev`` against the same
+    functions on the CPU, at the selfcheck's scale (128x128, 350 splats,
+    SH 3): build_structure exactly; render_diff's image and depth, and the
+    gradient of every DiffSplats leaf and of the CameraDeltas and Exposure
+    of a fit step's loss, within DIFF_IMG_TOL and DIFF_GRAD_RTOL."""
+    import numpy as np
+    import torch
+
+    from cudagaussianrenderer_torch import RenderConfig, diff, random_scene
+    from cudagaussianrenderer_torch.models.camera import Camera
+
+    config = RenderConfig(screen_size=128)
+    scene = random_scene(350, seed=3, sh_degree=3, device="cpu")
+    cam = Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max).camera_data()
+    cpu = torch.device("cpu")
+    # A capacity that is a whole number of emit grains on both devices, so
+    # that the two pair lists have the same length.
+    capacity = 16 * 4096
+    params = diff.from_scene(scene)
+    got = diff.build_structure(diff.tree_map(lambda a: a.to(dev), params), cam, config, capacity,
+                               device=dev)
+    want = diff.build_structure(params, cam, config, capacity, device=cpu)
+    for name, g, w in zip(want._fields, got, want):
+        require(torch.equal(g.cpu(), w),
+                f"build_structure on the card: {name} differs from the CPU")
+    k_max = max(8, diff.max_tile_count(want))
+    log(f"  build_structure, card vs CPU: sids, starts, counts and num_candidates equal "
+        f"({int(want.num_candidates)} candidates, k_max {k_max})")
+
+    rng = np.random.default_rng(0)
+    weights = torch.from_numpy(rng.normal(size=(128, 128, 3)).astype(np.float32))
+    extras = (diff.CameraDeltas(dr=torch.tensor([0.01, -0.02, 0.015]),
+                                dt=torch.tensor([0.05, 0.02, -0.03])),
+              diff.Exposure(gain=torch.tensor([1.1, 0.9, 1.0]),
+                            bias=torch.tensor([0.01, 0.0, -0.02])))
+
+    def grads(d):
+        p = diff.tree_map(lambda a: a.detach().to(d).requires_grad_(True), params)
+        ex = diff.tree_map(lambda a: a.detach().to(d).requires_grad_(True), extras)
+        c = diff.apply_camera_delta(diff._camera(cam, d), ex[0].dr, ex[0].dt)
+        st = diff.tree_map(lambda a: a.to(d), want)
+        image, depth, _ = diff.render_diff(p, c, config, capacity, k_max, structure=st,
+                                           return_depth=True, device=d)
+        rgb = image[..., :3] * ex[1].gain + ex[1].bias
+        loss = torch.sum(rgb * weights.to(d)) + torch.sum(depth)
+        leaves = diff.tree_leaves(p) + diff.tree_leaves(ex)
+        g = torch.autograd.grad(loss, leaves, allow_unused=True)
+        g = [torch.zeros_like(x) if gi is None else gi for gi, x in zip(g, leaves)]
+        return image.detach().cpu(), depth.detach().cpu(), [gi.cpu() for gi in g]
+
+    img_d, dep_d, g_d = grads(dev)
+    img_c, dep_c, g_c = grads(cpu)
+    err_img = float((img_d - img_c).abs().max())
+    err_dep = float((dep_d - dep_c).abs().max())
+    log(f"  render_diff, card vs CPU on the CPU's structure: image max |diff| {err_img:.2e}, depth "
+        f"{err_dep:.2e} (bound {DIFF_IMG_TOL:g})")
+    require(err_img <= DIFF_IMG_TOL and err_dep <= DIFF_IMG_TOL, "render_diff on the card differs")
+    names = [f for f in params._fields if getattr(params, f) is not None] + ["dr", "dt", "gain",
+                                                                             "bias"]
+    worst = []
+    for name, a, b in zip(names, g_d, g_c):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        worst.append(f"{name} {err / max(scale, 1e-30):.1e}")
+        require(err <= DIFF_GRAD_RTOL * scale, f"gradient of {name} on the card: max |diff| {err} "
+                f"against max |grad| {scale}")
+    log(f"  gradients, card vs CPU, max |diff| / max |grad| (bound {DIFF_GRAD_RTOL:g}): "
+        + ", ".join(worst))
+
+
+def diff_and_fit(dev, tmp, size=1024, fit_steps=FIT_STEPS, densify_every=FIT_DENSIFY_EVERY,
+                 resume_steps=FIT_RESUME_STEPS, refine_steps=FIT_REFINE_STEPS,
+                 capacity=FIT_CAPACITY):
+    """Phase 11, parts 2-4, on ``dev`` (the card; the CPU only to rehearse it
+    small), on phase 10's files in ``tmp``: render --depth of the scene's
+    .ply with render_diff's RGB against Renderer.render; fit of the COLMAP
+    workspace from its SfM points (the 3DGS recipe), resumed from its
+    checkpoint, then with pose and exposure refinement; the numbers."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from cudagaussianrenderer_torch import RenderConfig, Renderer, diff, load_posed
+    from cudagaussianrenderer_torch.models.camera import Camera
+    from cudagaussianrenderer_torch.ops import expand, ranges, raster
+    from cudagaussianrenderer_torch.render import round_capacity
+    from cudagaussianrenderer_torch.splatfile import load_scene
+    from cudagaussianrenderer_torch.utils.png import read_png
+
+    card = card_line() if dev.type == "cuda" else "cpu"
+    flags = ["--device", dev.type]
+    struct_k = (ranges.tile_edges, expand.interleave_rows, expand.emit_slots)
+    flat_k = struct_k + (raster.rasterize_tiles,)
+    ply, ws = tmp / "scene.ply", tmp / "ws"
+
+    # render --depth at full width, and render_diff's RGB of that view.
+    run_cli(dev, ["render", ply, "-o", tmp / "c.png", "--depth", tmp / "d.png", "--size", size,
+                  *flags], flat_k)
+    dimg = read_png(tmp / "d.png")
+    require(dimg.shape == (size, size, 3) and (dimg[..., 0] == dimg[..., 1]).all()
+            and (dimg[..., 0] == dimg[..., 2]).all() and dimg.min() != dimg.max(),
+            f"the depth PNG is misshapen, not grey or constant: {dimg.shape}")
+    log(f"  render --depth: {dimg.shape} grey, levels {int(dimg.min())}..{int(dimg.max())}")
+    scene = load_scene(ply, device=dev)
+    config = RenderConfig(screen_size=size)
+    cam = Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max)
+    renderer = Renderer(scene, config, device=dev)
+    frame = renderer.render(cam)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = diff.from_scene(scene)
+        cap = round_capacity(renderer.capacity, dev)
+        st = diff.build_structure(params, cam.camera_data(), config, cap, device=dev)
+        k_max = diff.max_tile_count(st)
+        image, _ = diff.render_diff(params, cam.camera_data(), config, cap, k_max, structure=st,
+                                    device=dev)
+        rgb = (image[..., :3] * 255.0 + 0.5).to(torch.uint8).cpu().numpy()
+    log(f"  render_diff at {size}x{size}, {scene.count} splats: k_max {k_max}, "
+        f"{int(st.num_candidates)} candidates, {time.perf_counter() - t0:.2f} s")
+    check("render_diff rgb vs Renderer.render", rgb, frame[..., :3])
+    del params, st, image, scene, renderer
+
+    # fit: the 3DGS recipe from the SfM points, with densify and holdout.
+    ck = tmp / "fit.npz"
+    fit_args = ["fit", "--dataset", ws, "--init", "points", "--sh-degree", 3, "--optimizer",
+                "3dgs", "--densify-every", densify_every, "--holdout", 2, "--checkpoint", ck,
+                "--checkpoint-every", densify_every, "--capacity", capacity, *flags]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    launches, _, err, secs = run_cli(
+        dev, [*fit_args, "--steps", fit_steps, "-o", tmp / "fitted.ply"], flat_k)
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    for line in err.splitlines():
+        if line.startswith(("dataset:", "holdout", "init:", "fitting", "density", "fit:", "step")):
+            log(f"    {line}")
+    require("exceed the structure capacity" not in err, "fit: the pair list saturated")
+    m = re.search(r"fitting (\d+) splats, capacity (\d+), k_max (\d+)", err)
+    n0, capacity, fit_kmax = (int(x) for x in m.groups())
+    m = re.search(r"fit: loss ([0-9.]+) -> ([0-9.]+)", err)
+    first, last = float(m.group(1)), float(m.group(2))
+    require(last < first, f"fit: the loss rose from {first} to {last}")
+    m = re.search(r"density control: (\d+) -> (\d+) splats", err)
+    require(m is not None and m.group(1) != m.group(2), "fit: densify left the count unchanged")
+    n1 = int(m.group(2))
+    m = re.search(r"holdout eval \(every 2th view\) \((\d+) views\): PSNR ([0-9.]+|inf) dB, "
+                  r"SSIM ([0-9.-]+)", err)
+    require(m is not None, "fit: no holdout PSNR/SSIM printed")
+    log(f"  holdout ({m.group(1)} views): PSNR {m.group(2)} dB, SSIM {m.group(3)}")
+    fitted = load_scene(tmp / "fitted.ply", device=dev)
+    fimg = Renderer(fitted, config, device=dev).render(cam)
+    require(fitted.count == n1 and fitted.sh_degree == 3 and fimg[..., 3].max() == 255
+            and fimg[..., :3].max() > 0, "the fitted .ply does not render")
+    log(f"  fitted .ply: {fitted.count} splats, SH {fitted.sh_degree}, renders through Renderer")
+    del fitted
+    ds = load_posed(ws)
+    init = diff.init_from_points(ds.points_xyz, ds.points_rgb, sh_degree=3, device=dev)
+    view = ds.cameras[1].camera_data()
+    st = diff.build_structure(init, view, config, capacity, device=dev)
+    candidates = int(st.num_candidates)
+    # Where a fit step's time goes, on that view (the loss's L1 term alone):
+    # the structure, render_diff's forward, the backward and tx_3dgs's
+    # update, each between synchronises (the last of 3 runs), and the
+    # forward and backward at the JAX package's block of 64 tiles, which the
+    # default block of tiles was chosen against; then the kernels and copies
+    # of one forward and backward in a profiler trace.
+    from cudagaussianrenderer_torch.bench import device_busy_ms
+
+    target = torch.from_numpy(ds.images[1]).to(dev)
+    tx = diff.tx_3dgs(8.0, 100)
+    opt = tx.init(init)
+
+    def render_and_backward(tile_batch=None):
+        p = diff.tree_map(lambda a: a.detach().requires_grad_(True), init)
+        image, _ = diff.render_diff(p, view, config, capacity, fit_kmax, structure=st,
+                                    tile_batch=tile_batch, device=dev)
+        loss = torch.abs(image[..., :3] - target).mean()
+        sync(dev)
+        t1 = time.perf_counter()
+        loss.backward()
+        sync(dev)
+        return p, time.perf_counter() - t1
+
+    for tile_batch in (diff.TILE_BATCH_CPU, None):
+        for _ in range(3):
+            sync(dev)
+            t0 = time.perf_counter()
+            st = diff.build_structure(init, view, config, capacity, device=dev)
+            sync(dev)
+            t1 = time.perf_counter()
+            p, t_bwd = render_and_backward(tile_batch)
+            t2 = time.perf_counter()
+            grads = diff.tree_map(lambda a: torch.zeros_like(a) if a.grad is None else a.grad, p)
+            upd, _ = tx.update(grads, opt, init)
+            diff.apply_updates(init, upd)
+            sync(dev)
+            t3 = time.perf_counter()
+        log(f"  fit step on the first view, tile_batch {tile_batch or diff.TILE_BATCH_CUDA} "
+            f"[{card}]: build_structure {1e3 * (t1 - t0):.1f} ms, render_diff "
+            f"{1e3 * (t2 - t1 - t_bwd):.1f} ms, backward {1e3 * t_bwd:.1f} ms, tx_3dgs "
+            f"{1e3 * (t3 - t2):.1f} ms; {1e3 * (t3 - t0):.1f} ms in all")
+    if dev.type == "cuda":
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        sync(dev)
+        t0 = time.perf_counter()
+        render_and_backward()
+        wall = time.perf_counter() - t0
+        busy = device_busy_ms(render_and_backward)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            render_and_backward()
+        kernels = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        log(f"  render_diff + backward [{card}]: {1e3 * wall:.1f} ms between synchronises, "
+            f"device busy {busy} ms in a trace, idle share "
+            + ("not measured" if busy is None else f"{1 - busy / (1e3 * wall):.3f}")
+            + f"; {kernels} kernel and copy records in a trace")
+    del grads, upd, opt
+    del ds, init, st, p, target
+    m = re.search(r"in [0-9.]+s \(([0-9.]+) ms/step", err)
+    fit_ms = float(m.group(1))
+    per_step = {k: v / fit_steps for k, v in launches.items()}
+    require(dev.type != "cuda" or all(launches[fn.__name__] >= fit_steps for fn in struct_k),
+            f"K1-K3 were not launched on every fit step: {launches}")
+
+    # Resume to a later step: it starts at the checkpoint's step.
+    _, _, err, _ = run_cli(dev, [*fit_args, "--resume", "--steps", fit_steps + resume_steps,
+                                     "-o", tmp / "resumed.ply"], flat_k)
+    require(f"at step {fit_steps}" in err, f"resume did not start at step {fit_steps}: {err[:400]}")
+    m = re.search(r"in [0-9.]+s \(([0-9.]+) ms/step", err)
+    resume_ms = float(m.group(1))
+    log(f"  resumed at step {fit_steps}, {resume_steps} steps: {resume_ms} ms/step")
+
+    # Pose and exposure refinement with an export of the refined poses.
+    _, _, err, _ = run_cli(dev, [
+        "fit", "--dataset", ws, "--init", "points", "--sh-degree", 3, "--steps", refine_steps,
+        "--refine-poses", "--refine-exposure", "--export-poses", tmp / "poses.json",
+        "--capacity", capacity, "-o", tmp / "refined.ply", *flags], struct_k)
+    require("pose refinement:" in err and "exposure:" in err, "no refinement report")
+    frames = json.loads((tmp / "poses.json").read_text())["frames"]
+    require(len(frames) == 4, f"export-poses wrote {len(frames)} frames")
+    for line in err.splitlines():
+        if line.startswith(("pose refinement", "exposure", "fit:")):
+            log(f"    {line}")
+
+    remat = size * size * fit_kmax * 16 > 2 << 30
+    log(f"  fit numbers [{card}]: {fit_ms} ms/step over the first {fit_steps} steps (densify "
+        f"and checkpoints included; the command {secs:.1f} s with loading and holdout eval), "
+        f"{resume_ms} ms/step resumed; peak memory {peak / 2**30:.2f} GiB; {n0} -> {n1} "
+        f"splats, capacity {capacity}, {candidates} candidates on the first step's view, "
+        f"k_max {fit_kmax}, remat {remat}")
+    log(f"  launches per fit step [{card}]: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in per_step.items() if k != "rasterize_tiles")
+        + f" (of {fit_steps} steps, with the k_max structure and the holdout frames); "
+        f"rasterize_tiles {launches['rasterize_tiles']} for the 2 holdout frames")
 
 
 def main() -> int:
@@ -1187,10 +1484,21 @@ def main() -> int:
         f"in {time.perf_counter() - t0:.1f} s (its JSON lines above)")
 
     # ---- 10. the CLI and the viewer at full width ------------------------------
-    log("== 10. CLI and viewer: 1M splats SH-3 at 1024x1024 through cli.main")
-    t0 = time.perf_counter()
-    cli_and_viewer(dev)
-    log(f"  phase 10 in {time.perf_counter() - t0:.1f} s")
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="gsr_cli_") as tmp:
+        log("== 10. CLI and viewer: 1M splats SH-3 at 1024x1024 through cli.main")
+        t0 = time.perf_counter()
+        cli_and_viewer(dev, Path(tmp))
+        log(f"  phase 10 in {time.perf_counter() - t0:.1f} s")
+
+        # ---- 11. the differentiable path and fitting ------------------------------
+        log("== 11. diff and fit: card vs CPU at 128x128; render --depth and fit --dataset "
+            "at 1024x1024 through cli.main")
+        t0 = time.perf_counter()
+        diff_card_vs_cpu(dev)
+        diff_and_fit(dev, Path(tmp))
+        log(f"  phase 11 in {time.perf_counter() - t0:.1f} s")
 
     P = "cudagaussianrenderer_tpu/ops/"
     # name -> (source file, counted wrapper, path that runs it, TPU kernel)

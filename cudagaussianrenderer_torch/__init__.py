@@ -29,12 +29,21 @@ datasets (a NeRF-synthetic ``transforms.json`` or a COLMAP workspace) load
 with ``load_posed`` (``dataset``, ``colmap``); ``diff.ssim`` scores frames
 against them.
 
+The differentiable path (``diff``): ``render_diff`` renders a frame as a
+function of unconstrained splat parameters (``DiffSplats``, from
+``from_scene``, ``random_init`` or ``init_from_points``) that autograd
+differentiates; its pair structure comes from kernels K1-K3 under
+``torch.no_grad()``.  ``fit`` trains them against posed images (the 3DGS
+recipe: Adam or ``diff.tx_3dgs``, density control, pose and exposure
+refinement), with ``save_checkpoint``/``load_checkpoint`` in the JAX
+package's ``.npz`` layout and ``to_scene`` back to a renderable scene.
+
 The command line is ``python -m cudagaussianrenderer_torch.cli`` (or
 ``gsplat-torch``), the JAX package's CLI: ``render``, ``orbit``,
 ``bench``, ``interactive``, ``serve`` (``viewer``: the live viewer, an HTTP
 server whose loop thread renders on the card), ``convert``, ``merge``,
-``eval`` and ``compare``, each with ``--device {cuda,cpu}``.  ``fit`` and
-``render --depth`` wait for the differentiable path.
+``eval``, ``compare`` and ``fit`` (``render --depth`` writes the expected
+depth map of the differentiable path), each with ``--device {cuda,cpu}``.
 
 The bench, ``python -m cudagaussianrenderer_torch.bench``, replays one
 frame captured as a CUDA graph for each orbit camera (``render_frame_tensors``
@@ -48,6 +57,17 @@ is the frame's device part).  Quick start::
 
 from .config import RenderConfig
 from .dataset import load_posed
+from .diff import (
+    DiffSplats,
+    fit,
+    from_scene,
+    init_from_points,
+    load_checkpoint,
+    random_init,
+    render_diff,
+    save_checkpoint,
+    to_scene,
+)
 from .models.camera import Camera, CameraController, InputState, orbit_cameras
 from .models.scene import GaussianScene, random_scene, scene_from_arrays, scene_from_numpy
 from .ply import load_gaussian_ply, write_gaussian_ply
@@ -57,19 +77,28 @@ from .splatfile import load_scene
 __all__ = [
     "Camera",
     "CameraController",
+    "DiffSplats",
     "GaussianScene",
     "InputState",
     "RenderConfig",
     "Renderer",
+    "fit",
+    "from_scene",
+    "init_from_points",
+    "load_checkpoint",
     "load_gaussian_ply",
     "load_posed",
     "load_scene",
     "orbit_cameras",
+    "random_init",
     "random_scene",
+    "render_diff",
     "render_frame",
     "render_frame_multipass",
+    "save_checkpoint",
     "scene_from_arrays",
     "scene_from_numpy",
+    "to_scene",
     "write_gaussian_ply",
 ]
 

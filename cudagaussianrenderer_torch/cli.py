@@ -19,9 +19,13 @@ Usage:
     python -m cudagaussianrenderer_torch.cli bench --procedural 100000
     python -m cudagaussianrenderer_torch.cli serve scene.ply --port 8000
     python -m cudagaussianrenderer_torch.cli render --procedural 300 --device cpu
+    python -m cudagaussianrenderer_torch.cli render scene.ply -o c.png --depth d.png
+    python -m cudagaussianrenderer_torch.cli fit --dataset ws/ --init points \
+        --optimizer 3dgs --densify-every 100 --holdout 8 -o fitted.ply
 
-``fit`` and ``render --depth`` parse the JAX package's flags and exit with
-an error: they need the differentiable path, the port's module 11.
+``fit`` and ``render --depth`` run the differentiable path (diff.py): its
+pair structure comes from kernels K1-K3, its blend and gradient from
+autograd.
 """
 
 from __future__ import annotations
@@ -32,9 +36,6 @@ import time
 from pathlib import Path
 
 import numpy as np
-
-# What fit and render --depth say until the differentiable path is ported.
-NOT_PORTED = "needs the differentiable path, not yet ported (ROADMAP module 11)"
 
 
 def _add_device(p):
@@ -137,8 +138,6 @@ def _build(args):
 def cmd_render(args):
     from .utils.png import write_png
 
-    if args.depth:
-        raise SystemExit(f"render --depth {NOT_PORTED}")
     renderer, camera, scene, config = _build(args)
     t0 = time.perf_counter()
     if args.passes > 1:
@@ -215,6 +214,33 @@ def cmd_render(args):
           file=sys.stderr)
     write_png(args.output, image)
     print(f"wrote {args.output}", file=sys.stderr)
+    if args.depth:
+        _write_depth(args.depth, renderer, camera, scene, config)
+
+
+def _write_depth(path, renderer, camera, scene, config):
+    """The expected-depth map of the differentiable path (a gather per pair
+    and pixel: for inspection, not the frame loop), normalized near to far
+    as black to white."""
+    import torch
+
+    from . import diff
+    from .render import round_capacity
+    from .utils.png import write_png
+
+    dev = renderer.device
+    with torch.no_grad():
+        params = diff.from_scene(scene)
+        cap = round_capacity(renderer.capacity, dev)
+        structure = diff.build_structure(params, camera.camera_data(), config, cap, device=dev)
+        k_max = max(128, diff.max_tile_count(structure))
+        _, depth, _ = diff.render_diff(params, camera.camera_data(), config, cap, k_max,
+                                       structure=structure, return_depth=True, device=dev)
+    d = depth.cpu().numpy()
+    lo, hi = float(d.min()), float(d.max())
+    dn = (d - lo) / (hi - lo) if hi > lo else np.zeros_like(d)
+    write_png(path, np.repeat((dn * 255 + 0.5).astype(np.uint8)[:, :, None], 3, axis=2))
+    print(f"wrote {path} (depth range [{lo:.4f}, {hi:.4f}] linear clip)", file=sys.stderr)
 
 
 def cmd_orbit(args):
@@ -368,10 +394,231 @@ def cmd_interactive(args):
 
 
 def cmd_fit(args):
-    """Fit a splat scene to target views by gradient descent: the JAX
-    package's differentiable path, not yet in the port.  The flags parse as
-    the JAX CLI's; the command exits without rendering anything."""
-    raise SystemExit(f"fit {NOT_PORTED}")
+    """Fit a splat scene to target views by gradient descent: the
+    differentiable path (diff.py) on the card.
+
+    Targets are a posed-image dataset (--dataset: a COLMAP workspace or a
+    NeRF-synthetic transforms.json), or orbit views of the input scene
+    rendered by the production pipeline.  The fit starts from the SfM point
+    cloud (--init points, the 3DGS recipe) or random splats in the same
+    bounds, and writes the fitted scene as a standard .ply.
+    """
+    from . import diff
+    from .models.camera import orbit_cameras
+    from .render import Renderer, round_capacity
+    from .utils.device import resolve_device
+    from .utils.png import write_png
+
+    dev = resolve_device(args.device)
+    if args.resume:
+        # Validate the checkpoint before the (expensive) dataset and target
+        # build; the optimizer state is rebuilt once the optimizer is known.
+        if not args.checkpoint:
+            raise SystemExit("--resume needs --checkpoint PATH")
+        ck_probe = diff.load_checkpoint(args.checkpoint, device="cpu")
+        if ck_probe["step"] >= args.steps:
+            raise SystemExit(
+                f"checkpoint is already at step {ck_probe['step']}; "
+                f"raise --steps past it to continue training"
+            )
+        if ck_probe["camera_deltas"] is not None and not args.refine_poses:
+            raise SystemExit(
+                "checkpoint carries refined poses; resume with "
+                "--refine-poses (or they would be silently dropped)"
+            )
+        if ck_probe["exposure"] is not None and not args.refine_exposure:
+            raise SystemExit(
+                "checkpoint carries per-view exposure; resume with "
+                "--refine-exposure (or it would be silently dropped)"
+            )
+    points_xyz = points_rgb = None
+    holdout_cams, holdout_targets = [], []
+    if args.holdout and not args.dataset:
+        raise SystemExit("--holdout needs --dataset")
+    if args.dataset:
+        # Posed-image dataset; splat init from the SfM point cloud when the
+        # layout has one, else random inside rig-derived bounds.
+        from .dataset import init_bounds_from_cameras, load_posed
+
+        ds = load_posed(
+            args.dataset,
+            downscale=args.downscale,
+            background=_parse_background(args.background),
+            max_frames=args.views or 0,
+        )
+        cams, images = ds.cameras, ds.images
+        frame_names = list(ds.names)
+        if args.holdout:
+            # llffhold-style split: every K'th view is test-only.
+            if args.holdout < 2:
+                raise SystemExit("--holdout takes K >= 2")
+            test = set(range(0, len(cams), args.holdout))
+            keep = [i for i in range(len(cams)) if i not in test]
+            if not keep:
+                raise SystemExit(
+                    f"--holdout {args.holdout} leaves no training views out of {len(cams)}"
+                )
+            holdout_cams = [cams[i] for i in sorted(test)]
+            holdout_targets = [images[i] for i in sorted(test)]
+            cams = [cams[i] for i in keep]
+            images = images[keep]
+            frame_names = [frame_names[i] for i in keep]
+            print(f"holdout: {len(holdout_cams)} test / {len(cams)} train views",
+                  file=sys.stderr)
+        if ds.points_xyz.shape[0] and args.init != "random":
+            points_xyz, points_rgb = ds.points_xyz, ds.points_rgb
+        elif args.init == "points":
+            raise SystemExit("--init points: the dataset has no SfM point cloud")
+        h, w = images.shape[1:3]
+        args.size, args.height = w, h
+        config = _config_from_args(args)
+        bounds_min, bounds_max = init_bounds_from_cameras(cams)
+        targets = list(images)
+        print(
+            f"dataset: {len(cams)} views at {w}x{h}, {ds.points_xyz.shape[0]} SfM points, "
+            f"init bounds {np.round(bounds_min, 3)}..{np.round(bounds_max, 3)}",
+            file=sys.stderr,
+        )
+    else:
+        renderer, camera, scene, config = _build(args)
+        bounds_min, bounds_max = scene.bounds_min, scene.bounds_max
+        views = args.views or 6
+        cams = orbit_cameras(bounds_min, bounds_max, views, aspect=config.aspect)
+        print(f"rendering {views} target views...", file=sys.stderr)
+        targets = [renderer.render(c)[..., :3] for c in cams]
+        frame_names = [f"frame_{i:04d}.png" for i in range(len(cams))]
+    cam_data = [c.camera_data() for c in cams]
+
+    tx = None
+    if args.optimizer == "3dgs":
+        extent = float(np.linalg.norm(
+            np.asarray(bounds_max, np.float64) - np.asarray(bounds_min, np.float64))) or 1.0
+        tx = diff.tx_3dgs(extent, args.steps)
+    resume_kw = {}
+    if args.resume:
+        # A resume replaces the init wholesale.  (Validated above; read again
+        # to rebuild the optimizer state now that the optimizer is known.)
+        tx_for_state = tx if tx is not None else diff.Adam(args.lr)
+        ck = diff.load_checkpoint(args.checkpoint, tx=tx_for_state, device=dev)
+        params = ck["params"]
+        for what in ("camera_deltas", "exposure"):
+            leaf = ck[what]
+            if leaf is not None and leaf[0].shape[0] != len(cams):
+                raise SystemExit(
+                    f"checkpoint {what} cover {leaf[0].shape[0]} views but this run trains "
+                    f"{len(cams)} — resume with the same dataset/--views/--holdout split"
+                )
+        resume_kw = dict(
+            start_step=ck["step"],
+            opt_state=ck["opt_state"],
+            camera_deltas=ck["camera_deltas"],
+            exposure=ck["exposure"],
+        )
+        print(f"resumed {args.checkpoint} at step {ck['step']} "
+              f"({params.means.shape[-1]} splats)", file=sys.stderr)
+    elif points_xyz is not None:
+        params = diff.init_from_points(
+            points_xyz, points_rgb, max_points=args.max_init_points, seed=args.seed,
+            sh_degree=args.sh_degree, device=dev,
+        )
+        print(f"init: {params.means.shape[-1]} splats from the SfM point cloud (3DGS recipe)",
+              file=sys.stderr)
+    else:
+        params = diff.random_init(
+            args.splats, bounds_min, bounds_max, seed=args.seed, scale=args.init_scale,
+            sh_degree=args.sh_degree, device=dev,
+        )
+    n_splats = int(params.means.shape[-1])
+    capacity = round_capacity(args.capacity or 16 * n_splats, dev)
+    if args.k_max:
+        k_max = args.k_max
+    else:
+        structure = diff.build_structure(params, cam_data[0], config, capacity, device=dev)
+        k_max = max(128, 2 * diff.max_tile_count(structure))
+    print(f"fitting {n_splats} splats, capacity {capacity}, k_max {k_max}, "
+          f"{args.steps} steps...", file=sys.stderr)
+    t0 = time.perf_counter()
+    fit_out = diff.fit(
+        params, cam_data, targets, config,
+        capacity=capacity, k_max=k_max, steps=args.steps,
+        learning_rate=args.lr, tx=tx,
+        l1_weight=args.l1_weight, ssim_weight=args.ssim_weight,
+        l2_weight=args.l2_weight,
+        log_every=max(1, args.steps // 10),
+        densify_every=args.densify_every,
+        optimize_cameras=args.refine_poses, camera_lr=args.camera_lr,
+        optimize_exposure=args.refine_exposure,
+        exposure_lr=args.exposure_lr,
+        sh_warmup_every=args.sh_warmup,
+        remat=args.remat,
+        checkpoint_every=(args.checkpoint_every or (args.steps if args.checkpoint else 0)),
+        checkpoint_path=args.checkpoint,
+        device=dev,
+        **resume_kw,
+    )
+    fit_out = list(fit_out)
+    exposure_out = fit_out.pop() if args.refine_exposure else None
+    if args.refine_poses:
+        params, losses, deltas = fit_out
+        dr = deltas.dr.cpu().numpy()
+        dt_corr = deltas.dt.cpu().numpy()
+        cams = [diff.refined_camera(c, dr[i], dt_corr[i]) for i, c in enumerate(cams)]
+        print(
+            f"pose refinement: max rotation {np.degrees(np.linalg.norm(dr, axis=1).max()):.3f} "
+            f"deg, max translation {np.linalg.norm(dt_corr, axis=1).max():.4f}",
+            file=sys.stderr,
+        )
+        if args.export_poses:
+            from .dataset import write_transforms
+
+            write_transforms(args.export_poses, cams, frame_names)
+            print(f"wrote {args.export_poses}", file=sys.stderr)
+    else:
+        params, losses = fit_out
+    if exposure_out is not None:
+        g = exposure_out.gain.cpu().numpy()
+        b = exposure_out.bias.cpu().numpy()
+        print(f"exposure: gain deviation max {np.abs(g - 1.0).max():.4f}, bias max "
+              f"{np.abs(b).max():.4f}", file=sys.stderr)
+    if args.densify_every:
+        print(f"density control: {n_splats} -> {params.means.shape[-1]} splats",
+              file=sys.stderr)
+    dt = time.perf_counter() - t0
+    first = resume_kw.get("start_step", 0)
+    steps_run = max(1, args.steps - first)
+    print(
+        f"fit: loss {losses[first]:.5f} -> {losses[-1]:.5f} in {dt:.1f}s "
+        f"({1e3 * dt / steps_run:.1f} ms/step incl. kernel build)",
+        file=sys.stderr,
+    )
+
+    diff.write_fitted_ply(args.output, params)
+    print(f"wrote {args.output}", file=sys.stderr)
+    fitted_scene = None
+    if args.preview or holdout_cams or args.eval_dataset:
+        fitted_scene = diff.to_scene(params)
+    if args.preview:
+        img = Renderer(fitted_scene, config, device=dev).render(cams[0])
+        write_png(args.preview, img)
+        print(f"wrote {args.preview}", file=sys.stderr)
+    if holdout_cams:
+        # The llffhold-style split of the same dataset: evaluate every
+        # --holdout'th view, never trained, at its stored pose.
+        _eval_views(fitted_scene, holdout_cams, holdout_targets, args,
+                    f"holdout eval (every {args.holdout}th view)")
+    if args.eval_dataset:
+        # Held-out evaluation (the 3DGS protocol): PSNR/SSIM on test views
+        # the fit never saw, composited like the training targets.
+        from .dataset import load_posed
+
+        ecams, etargets = load_posed(
+            args.eval_dataset,
+            downscale=args.downscale,
+            background=_parse_background(args.background),
+        )[:2]
+        h, w = etargets.shape[1:3]
+        args.size, args.height = w, h
+        _eval_views(fitted_scene, ecams, list(etargets), args, "eval")
 
 
 def cmd_serve(args):
@@ -625,7 +872,8 @@ def main(argv=None):
     )
     p.add_argument(
         "--depth", default=None, metavar="PNG",
-        help=f"expected-depth map: {NOT_PORTED}",
+        help="also write a normalized expected-depth map (the differentiable "
+             "path: for inspection, not the frame loop)",
     )
     _add_common(p)
     p.set_defaults(fn=cmd_render)
@@ -664,8 +912,7 @@ def main(argv=None):
     _add_common(p)
     p.set_defaults(fn=cmd_interactive)
 
-    # fit: the JAX CLI's flags, so its command lines parse; cmd_fit exits.
-    p = sub.add_parser("fit", help=f"fit splats to views by gradient descent: {NOT_PORTED}")
+    p = sub.add_parser("fit", help="fit splats to views by gradient descent (diff.py)")
     p.add_argument("scene", nargs="?", default=None)
     p.add_argument("-o", "--output", default="fitted.ply")
     p.add_argument("--preview", default=None, metavar="PNG")

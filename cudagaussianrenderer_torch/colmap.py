@@ -4,8 +4,8 @@ Captured 3DGS scenes (Mip-NeRF 360, Tanks & Temples, user phone
 captures) arrive as a COLMAP workspace: ``sparse/0/{cameras, images,
 points3D}.{bin,txt}`` plus an ``images/`` directory.  The CUDA
 reference is a forward-only renderer with no dataset layer at all; this
-module reads that layout for ``cli eval`` and, with the port's module 11
-(ROADMAP.md), for fitting — poses to models.camera.Camera, the SfM point
+module reads that layout for ``cli eval`` and for fitting (``cli fit``,
+diff.py) — poses to models.camera.Camera, the SfM point
 cloud for the canonical 3DGS splat initialization.  The port's copy of the
 JAX package's colmap.py: the same files, byte for byte, from the same
 cameras and points.

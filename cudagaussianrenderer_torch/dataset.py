@@ -6,8 +6,8 @@ posed images.  This module owns the NeRF-synthetic layout
 camera-to-world matrices, RGBA PNGs) and the layout-dispatching front
 door ``load_posed`` (COLMAP workspaces route to colmap.py).  The CUDA
 reference is a forward-only renderer with no training path; these
-loaders feed the differentiable path (the port's module 11, ROADMAP.md)
-and ``cli eval``, and the exporters (``cli orbit --transforms`` /
+loaders feed the differentiable path (``cli fit``, diff.py) and ``cli
+eval``, and the exporters (``cli orbit --transforms`` /
 ``--colmap``) round-trip a dataset end to end without external data.
 The port's copy of the JAX package's dataset.py: the same files, byte for
 byte, from the same cameras.

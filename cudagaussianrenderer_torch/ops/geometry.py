@@ -80,6 +80,23 @@ MF12_K = (127 - 8) << 7
 _U32 = 0xFFFFFFFF
 
 
+def clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
+    """torch.clamp's values with the JAX package's gradient at a bound.
+
+    jnp.clip, jnp.maximum and jnp.minimum split the gradient in half
+    between the value and a bound it ties with; torch.clamp passes all of
+    it to the value.  torch.maximum/torch.minimum split it as JAX does, so
+    every clip that autograd runs through (the differentiable path's
+    stages A-B and blend) goes through here.  The bounds are 0-d CPU
+    tensors: a scalar operand on any device, copied nowhere.
+    """
+    if lo is not None:
+        x = torch.maximum(x, torch.tensor(lo, dtype=x.dtype))
+    if hi is not None:
+        x = torch.minimum(x, torch.tensor(hi, dtype=x.dtype))
+    return x
+
+
 def as_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) -> int32 tensor of the same bit patterns."""
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)

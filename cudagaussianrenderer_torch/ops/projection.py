@@ -30,6 +30,7 @@ import torch
 
 from ..config import RenderConfig
 from ..utils.quantize import decode_quat_components
+from .geometry import clip
 
 
 class SplatClipData(NamedTuple):
@@ -160,9 +161,9 @@ def project_splats(
     # --- closed-form 2x2 eigendecomposition (cu:279-292) ---
     det = cov_a * cov_c - cov_b * cov_b
     mid = 0.5 * (cov_a + cov_c)
-    radius = torch.sqrt(torch.clamp(mid * mid - det, min=eps))
+    radius = torch.sqrt(clip(mid * mid - det, eps))
     lambda0 = mid + radius
-    lambda1 = torch.clamp(mid - radius, min=0.0)
+    lambda1 = clip(mid - radius, 0.0)
 
     # Principal eigenvector; the degenerate (already axis-aligned) case
     # falls back to (1, 0).  The minor axis is the clip-space
@@ -186,17 +187,15 @@ def project_splats(
         # output floor 1/255 (binning only; the conic is untouched).
         a255 = 255.0 * opacities
         if config.falloff == "gaussian":
-            dxc = 2.0 * torch.log(torch.clamp(a255, min=1e-12))
-            trunc = torch.sqrt(torch.clamp(dxc, 0.0, 9.0)) * (1.0 / 3.0)
+            dxc = 2.0 * torch.log(clip(a255, 1e-12))
+            trunc = torch.sqrt(clip(dxc, 0.0, 9.0)) * (1.0 / 3.0)
         else:
-            trunc = torch.sqrt(
-                torch.clamp(1.0 - 1.0 / torch.clamp(a255, min=1e-12), 0.0, 1.0)
-            )
+            trunc = torch.sqrt(clip(1.0 - 1.0 / clip(a255, 1e-12), 0.0, 1.0))
         ext0 = ext0 * trunc
         ext1 = ext1 * trunc
 
     # Conic = inverse 2x2 covariance (cu:305-307).
-    inv_det = 1.0 / torch.clamp(det, min=eps)
+    inv_det = 1.0 / clip(det, eps)
     conic_a = cov_c * inv_det
     conic_b = -cov_b * inv_det
     conic_c = cov_a * inv_det

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from .geometry import clip
+
 
 def num_sh_coeffs(degree: int) -> int:
     return (degree + 1) ** 2
@@ -77,8 +79,8 @@ def evaluate_sh_colors(means, sh, camera_position, degree: int) -> torch.Tensor:
     dx = camera_position[0] - means[0]
     dy = camera_position[1] - means[1]
     dz = camera_position[2] - means[2]
-    inv = 1.0 / torch.clamp(torch.sqrt(dx * dx + dy * dy + dz * dz), min=1e-20)
+    inv = 1.0 / clip(torch.sqrt(dx * dx + dy * dy + dz * dz), 1e-20)
     basis = torch.stack(sh_basis_components(dx * inv, dy * inv, dz * inv, degree))
     k = num_sh_coeffs(degree)
     acc = torch.einsum("kn,ckn->cn", basis, sh[:, :k])
-    return torch.clamp(acc + 0.5, 0.0, 1.0)
+    return clip(acc + 0.5, 0.0, 1.0)

@@ -1,7 +1,6 @@
 """The port's CLI (cudagaussianrenderer_torch.cli) against the JAX package's
-CLI with the same arguments, ``--device cpu`` on the port's side: render,
-compare, convert, merge, and the two commands that wait for the
-differentiable path.  tests/test_torch_cli_orbit.py covers orbit and eval,
+CLI with the same arguments, ``--device cpu`` on the port's side: render
+(``--depth`` too), compare, convert, merge, and what fit refuses.  tests/test_torch_cli_orbit.py covers orbit and eval,
 tests/test_torch_cli_loop.py interactive, bench and serve.
 
 Outputs that do not depend on pixels are byte-equal (converted and merged
@@ -109,13 +108,49 @@ def test_render_again_after_a_truncated_first_frame(tmp_path, capsys, bands):
 
 
 def test_fit_and_depth_refuse(tmp_path):
-    for argv in (["fit", "--procedural", "20", "--size", "32", "--steps", "5", "--splats", "8",
-                  "--k-max", "64", "-o", str(tmp_path / "x.ply")],
-                 ["render", "--procedural", "20", "--size", "32", "-o", str(tmp_path / "c.png"),
-                  "--depth", str(tmp_path / "d.png")]):
-        with pytest.raises(SystemExit, match="differentiable path, not yet ported"):
+    """What fit still refuses (tests/test_cli_and_profile.py's
+    test_fit_resume_guards, and --holdout without a dataset), with the JAX
+    CLI's message for the same arguments; before any work, so neither
+    writes a file.  render --depth renders: test_render_depth_matches_jax."""
+    from cudagaussianrenderer_tpu import diff as jdiff
+
+    ck = tmp_path / "ck.npz"
+    fit = ["fit", "--procedural", "20", "--size", "32", "--steps", "5", "--splats", "8",
+           "--k-max", "64", "-o", str(tmp_path / "x.ply")]
+    p = jdiff.random_init(8, (-1, -1, -1), (1, 1, 1), seed=0)
+    cases = [
+        (lambda: jdiff.save_checkpoint(ck, p, step=5), [*fit, "--checkpoint", str(ck), "--resume"],
+         "already at step 5"),
+        (lambda: jdiff.save_checkpoint(ck, p, step=2, camera_deltas=jdiff.zero_camera_deltas(2)),
+         [*fit, "--checkpoint", str(ck), "--resume"], "refine-poses"),
+        (lambda: jdiff.save_checkpoint(ck, p, step=2, exposure=jdiff.identity_exposure(2)),
+         [*fit, "--checkpoint", str(ck), "--resume", "--refine-poses"], "refine-exposure"),
+        (lambda: None, [*fit, "--resume"], "needs --checkpoint"),
+        (lambda: None, [*fit, "--holdout", "2"], "needs --dataset"),
+    ]
+    for write, argv, match in cases:
+        write()
+        with pytest.raises(SystemExit, match=match) as want:
+            jcli.main(argv)
+        with pytest.raises(SystemExit, match=match) as got:
             port(*argv)
-    assert not list(tmp_path.iterdir())
+        assert str(got.value) == str(want.value)
+    assert sorted(f.name for f in tmp_path.iterdir()) == ["ck.npz"]
+
+
+def test_render_depth_matches_jax(tmp_path):
+    """render --depth (tests/test_cli_and_profile.py's test_render_depth_flag)
+    writes the colour frame and a grey, normalized expected-depth PNG; both
+    against the JAX CLI's with the same arguments."""
+    args = ["render", "--procedural", "60", "--size", "32"]
+    jcli.main([*args, "-o", str(tmp_path / "jc.png"), "--depth", str(tmp_path / "jd.png")])
+    port(*args, "-o", tmp_path / "c.png", "--depth", tmp_path / "d.png")
+    got, want = read_png(tmp_path / "d.png"), read_png(tmp_path / "jd.png")
+    assert got.shape == want.shape == (32, 32, 3)
+    assert (got[..., 0] == got[..., 1]).all() and (got[..., 0] == got[..., 2]).all()
+    assert got.min() == 0 and got.max() == 255
+    image_close(got, want, "render --depth vs JAX")
+    image_close(read_png(tmp_path / "c.png"), read_png(tmp_path / "jc.png"), "render vs JAX")
 
 
 def _pngs(tmp_path):

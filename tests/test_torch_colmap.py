@@ -4,11 +4,10 @@ JAX package's colmap.py.
 
 Parity is exact: the ``.bin`` files both packages write from the same
 records are byte-equal, and both read the same model, text or binary, and
-the same dataset to equal cameras and bit-equal images and points.  The
-splat initialisation from the SfM points (diff.init_from_points) and
-``fit --dataset`` belong to the differentiable path, which the port does
-not have yet (ROADMAP module 11): their counterparts here check the points
-that would feed it and that ``fit`` refuses."""
+the same dataset to equal cameras and bit-equal images and points.  ``fit
+--dataset`` of a workspace is held against the JAX CLI's; the splat
+initialisation from the SfM points (diff.init_from_points) is held against
+the JAX package's in tests/test_torch_diff_structure.py."""
 
 import math
 import struct
@@ -25,7 +24,7 @@ from cudagaussianrenderer_torch.render import Renderer
 from cudagaussianrenderer_torch.utils.png import write_png
 from cudagaussianrenderer_tpu.models.camera import Camera as JCamera
 
-from torch_port_cases import one_torch_thread  # noqa: F401 (an autouse fixture)
+from torch_port_cases import fit_outputs_close, one_torch_thread  # noqa: F401 (one_torch_thread: an autouse fixture)
 
 
 def _random_camera(rng, aspect=1.0):
@@ -220,9 +219,9 @@ def test_load_posed_transforms_fallback(tmp_path):
 
 
 def test_sfm_points_for_init_match_jax(tmp_path):
-    """The counterpart of test_init_from_points until the port has
-    diff.init_from_points: the SfM cloud that would feed it (the
-    hand-computable four points) loads as the JAX package loads it."""
+    """The SfM cloud that feeds diff.init_from_points (the hand-computable
+    four points of test_init_from_points, whose counterpart is in
+    tests/test_torch_diff_structure.py) loads as the JAX package loads it."""
     xyz = np.array([[0, 0, 0], [1, 0, 0], [2, 0, 0], [10, 0, 0]], np.float32)
     rgb = np.array([[1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 1, 1]], np.float32)
     colmap.export_model(tmp_path, [Camera(aspect=1.0)], ["a.png"], 8, 8, xyz, rgb)
@@ -234,18 +233,50 @@ def test_sfm_points_for_init_match_jax(tmp_path):
     np.testing.assert_array_equal(got.points_rgb, want.points_rgb)
 
 
-def test_cli_fit_from_colmap_refuses(tmp_path):
+def test_cli_fit_from_colmap_refuses(tmp_path, capsys):
+    """fit --dataset of a COLMAP workspace (tests/test_colmap.py's
+    test_cli_fit_from_colmap): one splat per SfM point, --sh-degree reaching
+    the fitted model, as the JAX CLI with the same arguments
+    (fit_outputs_close); --holdout 1 refuses in both."""
     from cudagaussianrenderer_torch.cli import main
+    from cudagaussianrenderer_torch.splatfile import load_scene
+    from cudagaussianrenderer_tpu.cli import main as jmain
 
     root = tmp_path / "ws"
     scene, _, cams, names = _rendered_workspace(root, n_views=2)
     colmap.export_model(root, cams, names, 32, 32,
                         scene.means.numpy().T[: scene.count].astype(np.float32),
                         np.full((scene.count, 3), 0.5, np.float32))
-    with pytest.raises(SystemExit, match="differentiable path"):
-        main(["fit", "--dataset", str(root), "-o", str(tmp_path / "f.ply"), "--steps", "2",
-              "--k-max", "64", "--sh-degree", "1", "--device", "cpu"])
-    assert not (tmp_path / "f.ply").exists()
+    fit = ["fit", "--dataset", str(root), "--steps", "2", "--k-max", "64", "--sh-degree", "1"]
+    for run, flags in ((jmain, []), (main, ["--device", "cpu"])):
+        with pytest.raises(SystemExit, match="--holdout takes K >= 2"):
+            run([*fit, "--holdout", "1", "-o", str(tmp_path / "x.ply"), *flags])
+    capsys.readouterr()
+    jmain([*fit, "-o", str(tmp_path / "jax.ply")])
+    want = capsys.readouterr().err
+    main([*fit, "-o", str(tmp_path / "port.ply"), "--device", "cpu"])
+    got = capsys.readouterr().err
+    assert "SfM point" in got and "100 splats from the SfM point cloud" in got
+    fitted = load_scene(tmp_path / "port.ply", device="cpu")
+    assert fitted.count == scene.count and fitted.sh_degree == 1
+    fit_outputs_close(got, want, tmp_path / "port.ply", tmp_path / "jax.ply", cams[0])
+    assert not (tmp_path / "x.ply").exists()
+
+
+def test_cli_orbit_colmap_then_fit(tmp_path, capsys):
+    """tests/test_colmap.py's test_cli_orbit_colmap_roundtrip: orbit --colmap
+    writes a workspace that fit --dataset takes with the point-cloud init."""
+    from cudagaussianrenderer_torch.cli import main
+
+    ws = tmp_path / "ws"
+    main(["orbit", "--procedural", "50", "--size", "32", "-o", str(ws), "-n", "2", "--colmap",
+          "--device", "cpu"])
+    assert (ws / "sparse" / "0" / "cameras.bin").exists()
+    assert (ws / "images" / "frame_0000.png").exists()
+    main(["fit", "--dataset", str(ws), "-o", str(tmp_path / "f.ply"), "--steps", "1",
+          "--k-max", "64", "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert "SfM point" in err and (tmp_path / "f.ply").exists()
 
 
 def test_pinhole_anisotropic_focal_aspect():

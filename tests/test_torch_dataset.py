@@ -8,6 +8,7 @@ directory.  Frames come from the port's Renderer on the CPU."""
 
 import json
 import math
+import re
 
 import numpy as np
 import pytest
@@ -21,7 +22,7 @@ from cudagaussianrenderer_torch.render import Renderer
 from cudagaussianrenderer_torch.utils.png import write_png
 from cudagaussianrenderer_tpu.models.camera import Camera as JCamera
 
-from torch_port_cases import one_torch_thread  # noqa: F401 (an autouse fixture)
+from torch_port_cases import fit_outputs_close, one_torch_thread  # noqa: F401 (one_torch_thread: an autouse fixture)
 
 
 def _random_camera(rng, aspect=1.0):
@@ -144,20 +145,35 @@ def test_export_then_load_roundtrip(tmp_path):
 
 def test_cli_orbit_dataset_then_fit_refuses(tmp_path, capsys):
     """orbit --transforms exports a dataset that load_posed reads back; fit
-    --dataset (the differentiable path, module 11) exits with its
-    not-ported message instead of training."""
+    --dataset with --holdout and --eval-dataset (tests/test_dataset.py's
+    test_cli_fit_from_dataset, tests/test_cli_and_profile.py's
+    test_cli_eval_and_holdout) trains on it as the JAX CLI does with the
+    same arguments (fit_outputs_close); --init points refuses in both, the
+    layout having no SfM point cloud."""
     from cudagaussianrenderer_torch.cli import main
+    from cudagaussianrenderer_tpu.cli import main as jmain
 
     ds = tmp_path / "ds"
-    main(["orbit", "--procedural", "60", "--size", "32", "-o", str(ds), "-n", "2",
+    main(["orbit", "--procedural", "60", "--seed", "3", "--size", "32", "-o", str(ds), "-n", "4",
           "--transforms", "--device", "cpu"])
     posed = dataset.load_posed(ds)
-    assert posed.images.shape == (2, 32, 32, 3) and posed.names == ["frame_0000.png",
-                                                                    "frame_0001.png"]
-    with pytest.raises(SystemExit, match="module 11"):
-        main(["fit", "--dataset", str(ds), "-o", str(tmp_path / "f.ply"), "--splats", "20",
-              "--steps", "2", "--k-max", "64", "--eval-dataset", str(ds), "--device", "cpu"])
-    assert not (tmp_path / "f.ply").exists()
+    assert posed.images.shape == (4, 32, 32, 3) and posed.names[:2] == ["frame_0000.png",
+                                                                         "frame_0001.png"]
+    fit = ["fit", "--dataset", str(ds), "--splats", "20", "--steps", "2", "--k-max", "64",
+           "--holdout", "4", "--eval-dataset", str(ds)]
+    for run, flags in ((jmain, []), (main, ["--device", "cpu"])):
+        with pytest.raises(SystemExit, match="no SfM point cloud"):
+            run([*fit, "--init", "points", "-o", str(tmp_path / "x.ply"), *flags])
+    capsys.readouterr()
+    jmain([*fit, "-o", str(tmp_path / "jax.ply")])
+    want = capsys.readouterr().err
+    main([*fit, "-o", str(tmp_path / "port.ply"), "--device", "cpu"])
+    got = capsys.readouterr().err
+    assert "holdout: 1 test / 3 train views" in got
+    assert re.search(r"holdout eval \(every 4th view\) \(1 views\): PSNR", got)
+    assert re.search(r"\beval \(4 views\): PSNR", got)
+    fit_outputs_close(got, want, tmp_path / "port.ply", tmp_path / "jax.ply", posed.cameras[1])
+    assert not (tmp_path / "x.ply").exists()
 
 
 # --- parity with the JAX package ---------------------------------------------

@@ -478,3 +478,91 @@ def test_ssim_on_card_with_tf32_allowed_matches_cpu(dev):
             assert -1.0 <= float(got) <= 1.0
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+# The differentiable path on the card against the CPU, on the same inputs and
+# the same pair structure: image and depth within DIFF_IMG_TOL; each gradient
+# within DIFF_GRAD_RTOL of its leaf's largest |gradient| (the card's exp,
+# log1p and matmul round otherwise); chip_smoke.py phase 11 holds the same.
+DIFF_IMG_TOL, DIFF_GRAD_RTOL = 1e-5, 1e-4
+
+
+def _diff_case(n=350, size=128):
+    from cudagaussianrenderer_torch import diff
+
+    scene = pt.random_scene(n, seed=3, sh_degree=3, device="cpu")
+    config = pt.RenderConfig(screen_size=size)
+    cam = pt.Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max).camera_data()
+    return diff, diff.from_scene(scene), config, cam
+
+
+def test_build_structure_on_card_matches_cpu(dev):
+    """K1-K3 under build_structure: the same sids, starts, counts and
+    candidate count as the plain versions on the CPU (a capacity that is a
+    whole number of emit grains on both devices)."""
+    diff, params, config, cam = _diff_case()
+    cap = 16 * 4096
+    got = diff.build_structure(diff.tree_map(lambda a: a.to(dev), params), cam, config, cap,
+                               device=dev)
+    want = diff.build_structure(params, cam, config, cap, device="cpu")
+    for name, g, w in zip(want._fields, got, want):
+        assert torch.equal(g.cpu(), w), name
+
+
+def test_render_diff_and_gradients_on_card_match_cpu(dev):
+    """render_diff's image and depth, and the gradient of every DiffSplats
+    leaf and of a pose correction and an exposure, on the card against the
+    CPU."""
+    diff, params, config, cam = _diff_case()
+    structure = diff.build_structure(params, cam, config, 1 << 16, device="cpu")
+    k_max = max(8, diff.max_tile_count(structure))
+    weights = torch.from_numpy(
+        np.random.default_rng(0).normal(size=(128, 128, 3)).astype(np.float32))
+    extras = (diff.CameraDeltas(dr=torch.tensor([0.01, -0.02, 0.015]),
+                                dt=torch.tensor([0.05, 0.02, -0.03])),
+              diff.Exposure(gain=torch.tensor([1.1, 0.9, 1.0]),
+                            bias=torch.tensor([0.01, 0.0, -0.02])))
+
+    def run(d):
+        p = diff.tree_map(lambda a: a.detach().to(d).requires_grad_(True), params)
+        ex = diff.tree_map(lambda a: a.detach().to(d).requires_grad_(True), extras)
+        c = diff.apply_camera_delta(diff._camera(cam, d), ex[0].dr, ex[0].dt)
+        image, depth, _ = diff.render_diff(p, c, config, 1 << 16, k_max,
+                                           structure=diff.tree_map(lambda a: a.to(d), structure),
+                                           return_depth=True, device=d)
+        loss = torch.sum((image[..., :3] * ex[1].gain + ex[1].bias) * weights.to(d))
+        loss = loss + torch.sum(depth)
+        leaves = diff.tree_leaves(p) + diff.tree_leaves(ex)
+        g = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return image.detach().cpu(), depth.detach().cpu(), [
+            torch.zeros_like(x).cpu() if gi is None else gi.cpu() for gi, x in zip(g, leaves)]
+
+    img_d, dep_d, g_d = run(dev)
+    img_c, dep_c, g_c = run(torch.device("cpu"))
+    assert float((img_d - img_c).abs().max()) <= DIFF_IMG_TOL
+    assert float((dep_d - dep_c).abs().max()) <= DIFF_IMG_TOL
+    assert len(g_d) == 10
+    for a, b in zip(g_d, g_c):
+        assert float((a - b).abs().max()) <= DIFF_GRAD_RTOL * float(b.abs().max())
+
+
+def test_fit_step_on_card_matches_cpu(dev):
+    """One fit step (tx_3dgs, the paper's L1 + D-SSIM loss, pose and exposure
+    refinement) on the card against the CPU: the loss, and the parameters
+    after the step within a tenth of the smallest rate's step."""
+    diff, params, config, cam = _diff_case(n=200, size=64)
+    renderer = pt.Renderer(pt.random_scene(300, seed=4, device="cpu"), config, device="cpu")
+    target = renderer.render(pt.Camera(aspect=1.0).framed((-4,) * 3, (4,) * 3))[..., :3]
+    # Anisotropic splats: an isotropic splat's rotation has no gradient but
+    # rounding noise, which tx_3dgs's eps of 1e-15 turns into full-rate steps.
+    stretch = torch.from_numpy(
+        np.random.default_rng(1).normal(0, 0.4, tuple(params.log_scales.shape)).astype(np.float32))
+    params = params._replace(log_scales=params.log_scales + stretch)
+    kw = dict(capacity=1 << 16, k_max=256, steps=1, l1_weight=0.8, ssim_weight=0.2,
+              l2_weight=0.0, optimize_cameras=True, optimize_exposure=True)
+    outs = [diff.fit(params, [cam], [target], config, tx=diff.tx_3dgs(8.0, 10), device=d, **kw)
+            for d in (dev, torch.device("cpu"))]
+    (p_d, l_d, c_d, e_d), (p_c, l_c, c_c, e_c) = outs
+    assert abs(float(l_d[0]) - float(l_c[0])) <= 1e-5 * abs(float(l_c[0]))
+    for a, b in zip(diff.tree_leaves((p_d, c_d, e_d)), diff.tree_leaves((p_c, c_c, e_c))):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4

@@ -2,9 +2,11 @@
 the card-only kernel tests: clip-data edits for the emit tests (each returns
 a function that changes a dict of per-splat clip-data arrays, numpy or
 torch, in place) and per-band candidate counts for the band compaction;
-and two helpers of the CLI and viewer tests: the suite's image rule and a
-free port.  Imports neither jax nor the JAX package."""
+and helpers of the CLI and viewer tests: the suite's image rule, a free
+port, and the comparison of two ``fit`` runs.  Imports neither jax nor the
+JAX package."""
 
+import re
 import socket
 
 import numpy as np
@@ -20,6 +22,64 @@ def image_close(got, want, msg=""):
     diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
     bad = (diff > PIX_TOL).any(axis=-1).mean()
     assert bad <= BAD_FRAC, f"{msg}: {bad:.4f} of pixels differ by more than {PIX_TOL}"
+
+
+# Two CLI fits of the same arguments (the port's and the JAX package's): the
+# printed losses (5 decimals) within FIT_LOSS_ATOL; PSNR (2 decimals) and
+# SSIM (4 decimals) of each eval within FIT_PSNR_ATOL and FIT_SSIM_ATOL (each
+# package renders the fitted scene with its own Renderer); the fitted
+# splats' stored values within FIT_PARAM_ATOL (a few f32 roundings through
+# the Adam steps).
+FIT_LOSS_ATOL, FIT_PSNR_ATOL, FIT_SSIM_ATOL, FIT_PARAM_ATOL = 2e-5, 0.05, 2e-3, 1e-4
+
+
+def fit_outputs_close(got_err, want_err, got_ply, want_ply, camera):
+    """The stderr and the fitted .ply of two ``fit`` runs agree: the losses,
+    every PSNR/SSIM line, the splat count, SH degree and stored values
+    (rotations aside: the initial splats are isotropic, so their rotation
+    has no gradient but rounding noise, which Adam's normalized step makes
+    lr-sized), and the two scenes render within the image rule."""
+    from cudagaussianrenderer_torch.config import RenderConfig
+    from cudagaussianrenderer_torch.render import Renderer
+    from cudagaussianrenderer_torch.splatfile import load_scene
+
+    loss = r"fit: loss ([0-9.]+) -> ([0-9.]+)"
+    np.testing.assert_allclose([float(x) for x in re.search(loss, got_err).groups()],
+                               [float(x) for x in re.search(loss, want_err).groups()],
+                               rtol=0, atol=FIT_LOSS_ATOL)
+    score = r"PSNR ([0-9.]+) dB, SSIM ([0-9.]+)"
+    got_s, want_s = re.findall(score, got_err), re.findall(score, want_err)
+    assert len(got_s) == len(want_s)
+    for (gp, gs), (wp, ws) in zip(got_s, want_s):
+        assert abs(float(gp) - float(wp)) <= FIT_PSNR_ATOL, (gp, wp)
+        assert abs(float(gs) - float(ws)) <= FIT_SSIM_ATOL, (gs, ws)
+    got, want = load_scene(got_ply, device="cpu"), load_scene(want_ply, device="cpu")
+    assert got.count == want.count and got.sh_degree == want.sh_degree
+    for f in ("means", "scales", "opacities", "colors", "sh"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=FIT_PARAM_ATOL,
+                                       err_msg=f)
+    config = RenderConfig(screen_size=32)
+    image_close(Renderer(got, config, device="cpu").render(camera),
+                Renderer(want, config, device="cpu").render(camera), "fitted scenes")
+
+
+def rendered_views(n_splats, seed, size, n_views, **scene_kw):
+    """(scene, orbit cameras, float RGB targets in [0, 1]): ``n_views``
+    orbit views of a random scene rendered by the port's Renderer on the
+    CPU, the targets of the fit tests."""
+    from cudagaussianrenderer_torch.config import RenderConfig
+    from cudagaussianrenderer_torch.models.camera import orbit_cameras
+    from cudagaussianrenderer_torch.models.scene import random_scene
+    from cudagaussianrenderer_torch.render import Renderer
+
+    scene = random_scene(n_splats, seed=seed, device="cpu", **scene_kw)
+    renderer = Renderer(scene, RenderConfig(screen_size=size), device="cpu")
+    cams = orbit_cameras(scene.bounds_min, scene.bounds_max, n_views)
+    targets = [renderer.render(c)[..., :3].astype(np.float32) / 255.0 for c in cams]
+    return scene, cams, targets
 
 
 def free_port() -> int:
