@@ -14,7 +14,8 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
      K4_LSB_BOUND output levels), with per-kernel times; K3 and K4 also
      on the huge-splat 1024x1024 scene, parity and time;
   3. golden scenes: the non-banded scenes of tools/tpu_selfcheck.py
-     through the port, each against the port's golden.py oracle;
+     through the port, each against the port's golden.py oracle, and its
+     balanced-bands case (two bands of parallel.render_band, summed);
   4. the main path at full width: Renderer on the 1M-splat SH-3 scene at
      1024x1024 over 8 orbit cameras, with the launch counts of K1-K4;
   5. banded kernel parity at full-width shapes: the same scene and camera
@@ -62,7 +63,23 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
      FIT_STEPS + FIT_RESUME_STEPS, and --refine-poses --refine-exposure
      --export-poses; the fitted .ply loaded and rendered; seconds a step,
      peak memory, k_max, capacity, candidates, remat and the K1-K3 launches
-     a step, beside the card's name and power limit.
+     a step, beside the card's name and power limit;
+ 12. multi-device (cudagaussianrenderer_torch.parallel) on phase 4's scene
+     and cameras: (a) render_band of every band of 2, 4 and 8 balanced
+     bands on every camera, the bands' pairs summing to the flat frame's and
+     the summed frame against phase 4's (the image rule); (b) through
+     parallel.launch.spawn, a world-size-1 NCCL group: DistributedRenderer
+     .render of every camera against Renderer.render (byte-equal expected;
+     the image rule enforced), render_batch and a 1x1 render_frames_sharded
+     equal to it, the K1-K4 launches of the sharded frames, the loopback
+     time of the frame's two collectives, and DP_STEPS fit_dp steps on
+     phase 10's COLMAP views against the same steps by hand (every leaf
+     within DIFF_GRAD_RTOL of its largest value); (c) the projected N-card
+     frame for 2, 4 and 8 cards: the largest band's render_band device time
+     (the sum of a trace's records) plus the all-gather of the clip buffer
+     and the frame's all-reduce bounded at NVLink's 450 GB/s, labelled a
+     projection.  Its
+     JSON line ``{"multi_device": ...}`` prints before the per-kernel line.
 
 Phases 2 and 5 also hold K1 on the corner cases of tests/torch_port_cases.py
 (flat, then segmented; aligned keys and a view 4 bytes off).
@@ -74,9 +91,9 @@ torch.profiler trace of the same calls; null if the trace holds none).
 
 Any failure raises and exits non-zero.  The last line of stdout is one
 JSON object naming the device; the line before it is the card's
-``nvidia-smi`` name and power limit, and before that the per-kernel JSON
-line.  Without a CUDA device the script exits non-zero and prints no
-result.
+``nvidia-smi`` name and power limit, before that the per-kernel JSON line,
+and before that phase 12's.  Without a CUDA device the script exits
+non-zero and prints no result.
 """
 
 import json
@@ -126,6 +143,14 @@ DIFF_IMG_TOL, DIFF_GRAD_RTOL = 1e-5, 1e-4
 # ~2.3M candidates of a view of the 100,000 SfM points).
 FIT_STEPS, FIT_DENSIFY_EVERY, FIT_RESUME_STEPS, FIT_REFINE_STEPS = 30, 5, 15, 3
 FIT_CAPACITY = 4 << 20
+# Phase 12: the band counts of render_band and of the projected N-card
+# frame; the data-parallel steps held against the hand steps; the H100 SXM
+# data sheet's NVLink rate, each way between a card and the others of its
+# host (900 GB/s both ways together), that bounds the projection's
+# collectives.
+BAND_COUNTS = (2, 4, 8)
+DP_STEPS = 3
+NVLINK_BYTES_PER_S = 450e9
 
 
 def log(*args):
@@ -853,6 +878,264 @@ def diff_and_fit(dev, tmp, size=1024, fit_steps=FIT_STEPS, densify_every=FIT_DEN
         f"rasterize_tiles {launches['rasterize_tiles']} for the 2 holdout frames")
 
 
+def multi_device_rank(ws, n_splats, size, dp_capacity):
+    """Phase 12(b): the one rank of a world-size-1 NCCL group that
+    parallel.launch.spawn starts (gloo on the CPU, to rehearse it small).
+    On phase 4's scene (``n_splats``, SH 3, ``size``²) and cameras:
+    DistributedRenderer.render of each camera against Renderer.render (K1-K4
+    counted), render_batch, render_frames_sharded on a 1x1 mesh; the
+    loopback times of the frame's two collectives; then DP_STEPS fit_dp
+    steps on phase 10's COLMAP views (``ws``) against the same steps by hand.
+    Returns the numbers, for phase 12 to check and print."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from cudagaussianrenderer_torch import RenderConfig, Renderer, diff, load_posed
+    from cudagaussianrenderer_torch import orbit_cameras, random_scene
+    from cudagaussianrenderer_torch.ops import expand, ranges, raster
+    from cudagaussianrenderer_torch.parallel import (
+        DistributedRenderer, fit_dp, make_mesh, make_mesh_2d, render_frames_sharded,
+        stack_cameras,
+    )
+    from cudagaussianrenderer_torch.parallel.distributed import GATHER_ROWS, _gather_tiled
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_cases import anisotropic, hand_steps, leaf_rel_diffs
+
+    mesh = make_mesh()
+    dev = mesh.device
+    out = {"device": str(dev), "backend": str(dist.get_backend()),
+           "world": dist.get_world_size()}
+    scene = random_scene(n_splats, seed=0, min_scale=0.002, max_scale=0.053, extent=4.0,
+                         sh_degree=3, device=dev)
+    config = RenderConfig(screen_size=size)
+    cams = orbit_cameras(scene.bounds_min, scene.bounds_max, 8)
+    ref = Renderer(scene, config, device=dev)
+    ref.render(cams[0])
+    want = [ref.render(c) for c in cams]
+    dr = DistributedRenderer(scene, config, mesh=mesh)
+    dr.render(cams[0])  # warm-up: sizes the per-rank capacity from its candidates
+    counted = (ranges.tile_edges, expand.interleave_rows, expand.emit_slots,
+               raster.rasterize_tiles)
+    sync(dev)
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    got = [dr.render(c) for c in cams]
+    out["ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / len(cams)
+    out["launches"] = {fn.__name__: fn.launches for fn in counted}
+    out["capacity"] = dr.capacity
+
+    def bad_px(a, b):
+        d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        return float((d > PIX_TOL).any(axis=-1).mean()), int(d.max())
+
+    out["frames"] = [(bool(np.array_equal(a, b)),) + bad_px(a, b) for a, b in zip(got, want)]
+    batch = dr.render_batch(cams)
+    out["batch_equal"] = sum(bool(np.array_equal(batch[i], g)) for i, g in enumerate(got))
+    imgs, _ = render_frames_sharded(dr.scene, stack_cameras(cams), config, dr.capacity,
+                                    make_mesh_2d(1, 1))
+    imgs = imgs.cpu().numpy()
+    out["mesh_1x1_equal"] = sum(bool(np.array_equal(imgs[i], g)) for i, g in enumerate(got))
+    padded = dr.scene.padded_count
+    del ref, dr, batch, imgs, scene
+
+    # The frame's collectives at their sizes: the all-gather of the packed
+    # clip buffer and the all-reduce of a frame; on one rank a loopback.
+    packed = torch.zeros((GATHER_ROWS, padded), device=dev)
+    frame = torch.zeros((config.screen_h, config.screen_w, 4), dtype=torch.uint8, device=dev)
+    for key, fn in (("loopback_all_gather_ms", lambda: _gather_tiled(packed, mesh, "tiles", 1)),
+                    ("loopback_all_reduce_ms", lambda: dist.all_reduce(frame))):
+        out[key] = cuda_ms(fn, 20) if dev.type == "cuda" else None
+    del packed, frame
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # fit_dp against the same steps by hand, on phase 10's views.
+    ds = load_posed(ws)
+    fcfg = RenderConfig(screen_size=ds.images.shape[2], screen_height=ds.images.shape[1])
+    init = anisotropic(diff.init_from_points(ds.points_xyz, ds.points_rgb, sh_degree=3,
+                                             device=dev))
+    views = [c.camera_data() for c in ds.cameras]
+    targets = list(ds.images)
+    k_max = max(128, 2 * max(diff.max_tile_count(
+        diff.build_structure(init, v, fcfg, dp_capacity, device=dev)) for v in views))
+    hand_steps(init, views, targets, fcfg, dp_capacity, k_max, 1, dev)  # warm-up
+    sync(dev)
+    t0 = time.perf_counter()
+    hand, hand_losses = hand_steps(init, views, targets, fcfg, dp_capacity, k_max, DP_STEPS, dev)
+    sync(dev)
+    t1 = time.perf_counter()
+    fitted, dp_losses = fit_dp(init, views, targets, fcfg, capacity=dp_capacity, k_max=k_max,
+                               mesh=make_mesh(axis="dp"), steps=DP_STEPS)
+    sync(dev)
+    out["hand_s_per_step"] = (t1 - t0) / DP_STEPS
+    out["fit_dp_s_per_step"] = (time.perf_counter() - t1) / DP_STEPS
+    out["fit_dp"] = dict(splats=int(init.means.shape[-1]), k_max=k_max, views=len(views),
+                         size=[fcfg.screen_w, fcfg.screen_h],
+                         losses=[float(x) for x in dp_losses], hand_losses=hand_losses,
+                         leaf_rel=leaf_rel_diffs(fitted, hand))
+    return out
+
+
+def multi_device(dev, scene, cams, frames, config, capacity, tmp, card):
+    """Phase 12, on ``dev`` (the card; the CPU only to rehearse it small, without
+    (c)).  ``scene``, ``cams``, ``frames`` and ``capacity`` are phase 4's
+    (its padded scene, cameras, Renderer frames and settled capacity); ``tmp``
+    holds phase 10's files.  (a) render_band of every
+    band of BAND_COUNTS balanced bands on every camera: the bands' pairs sum
+    to the flat frame's, and the summed frame meets the image rule against
+    phase 4's; (b) multi_device_rank in a world-size-1 NCCL group; (c) the
+    projected N-card frame.  Returns the multi_device JSON object."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cudagaussianrenderer_torch.parallel import launch, render_band
+    from cudagaussianrenderer_torch.parallel.distributed import GATHER_ROWS
+    from cudagaussianrenderer_torch.render import (
+        _splat_colors, camera_tensors, render_frame, round_capacity,
+    )
+    from cudagaussianrenderer_torch.ops.projection import project_splats
+
+    bcfg = dataclasses.replace(config, balanced_bands=True)
+    cds = [c.camera_data() for c in cams]
+    flat_pairs = [int(render_frame(scene, cd, config, capacity, device=dev)[1]["num_pairs"])
+                  for cd in cds]
+    result = {"card": card, "scene": f"{scene.count} splats SH {scene.sh_degree} (padded "
+              f"{scene.padded_count}), {config.screen_w}x{config.screen_h}, {len(cams)} cameras"}
+
+    # (a) every band of every band count, on every camera.
+    t0 = time.perf_counter()
+    bands = {}
+    for n in BAND_COUNTS:
+        worst, bad = None, 0.0
+        for ci, cd in enumerate(cds):
+            total = torch.zeros(frames[ci].shape, dtype=torch.int32, device=dev)
+            pairs = 0
+            for d in range(n):
+                full, aux = render_band(scene, cd, bcfg, capacity, n, d, device=dev)
+                total += full.to(torch.int32)
+                pairs += int(aux["num_pairs"])
+                cand = int(aux["num_candidates"])
+                require(cand <= capacity, f"band {d} of {n} saturated on camera {ci}")
+                if worst is None or cand > worst[0]:
+                    worst = (cand, ci, d, aux["band_lo"], aux["band_hi"])
+            require(pairs == flat_pairs[ci], f"{n} bands of camera {ci} hold {pairs} pairs, the "
+                    f"flat frame {flat_pairs[ci]}")
+            require(int(total.max()) <= 255, f"{n} bands of camera {ci} overlap")
+            img = total.to(torch.uint8).cpu().numpy()
+            diff = np.abs(img.astype(np.int32) - frames[ci].astype(np.int32))
+            bad = max(bad, float((diff > PIX_TOL).any(axis=-1).mean()))
+            require(bad <= BAD_FRAC, f"{n} bands of camera {ci} against Renderer.render: {bad} "
+                    f"of pixels off by more than {PIX_TOL}")
+        bands[n] = dict(worst_candidates=worst[0], worst_camera=worst[1], worst_band=worst[2],
+                        worst_rows=[worst[3], worst[4]], bad_px_max=bad)
+        log(f"  render_band, {n} bands x {len(cams)} cameras: pairs sum to the flat frame's "
+            f"(mean {sum(flat_pairs) / len(cams):.0f}); summed frames vs Renderer.render, bad_px "
+            f"at most {bad:.4f}; largest band: camera {worst[1]} band {worst[2]} rows "
+            f"{worst[3]}-{worst[4]}, {worst[0]} candidates")
+    result["render_band"] = {str(n): b for n, b in bands.items()}
+    log(f"  (a) in {time.perf_counter() - t0:.1f} s")
+
+    # (b) the sharded path in a world-size-1 NCCL group.
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    rank = launch.spawn(multi_device_rank, 1, dev.type, str(tmp / "ws"), scene.count,
+                        config.screen_w, FIT_CAPACITY)[0]
+    frames_ok = [f for f in rank["frames"] if f[0]]
+    log(f"  world-size-1 group ({rank['backend']}, {rank['device']}): DistributedRenderer "
+        f"{rank['ms_per_frame']:.3f} ms/frame, per-rank capacity {rank['capacity']}, "
+        f"{len(frames_ok)} of {len(cams)} frames byte-equal to Renderer.render, bad_px at most "
+        f"{max(f[1] for f in rank['frames']):.4f} (max diff {max(f[2] for f in rank['frames'])}); "
+        f"render_batch equal {rank['batch_equal']}, 1x1 render_frames_sharded equal "
+        f"{rank['mesh_1x1_equal']}; launches {rank['launches']}")
+    for i, (_, b, m) in enumerate(rank["frames"]):
+        require(b <= BAD_FRAC, f"sharded frame {i}: {b} of pixels off by more than {PIX_TOL}")
+    require(rank["batch_equal"] == len(cams) and rank["mesh_1x1_equal"] == len(cams),
+            "render_batch or the 1x1 mesh differ from DistributedRenderer.render")
+    for name, count in rank["launches"].items():
+        # (The wrappers count launches of their kernels: none on the CPU.)
+        require(dev.type != "cuda" or count >= len(cams),
+                f"{name} launched {count} times in {len(cams)} sharded frames")
+    f = rank["fit_dp"]
+    log(f"  fit_dp, {DP_STEPS} steps on {f['views']} COLMAP views at {f['size']} ({f['splats']} "
+        f"splats, k_max {f['k_max']}): {rank['fit_dp_s_per_step']:.3f} s/step (by hand "
+        f"{rank['hand_s_per_step']:.3f}, after a warm-up step), losses "
+        f"{f['losses']} vs by hand {f['hand_losses']}; parameter leaves off by at most "
+        f"{max(f['leaf_rel']):.2e} of their largest value")
+    require(max(f["leaf_rel"]) <= DIFF_GRAD_RTOL, f"fit_dp against the hand steps: {f['leaf_rel']}")
+    require(np.allclose(f["losses"], f["hand_losses"], rtol=1e-6, atol=0),
+            f"fit_dp losses {f['losses']} against {f['hand_losses']}")
+    log(f"  loopback (one rank, NCCL on one card, no NVLink) [{card}]: all-gather of the "
+        f"[{GATHER_ROWS}, {scene.padded_count}] clip buffer {rank['loopback_all_gather_ms']} ms, "
+        f"all-reduce of a frame {rank['loopback_all_reduce_ms']} ms (between events)")
+    log(f"  (b) in {time.perf_counter() - t0:.1f} s")
+    result["world_size_1"] = rank
+    if dev.type != "cuda":
+        return result
+
+    # (c) the projected N-card frame (tools/measure.py:273-365's method): the
+    # device time of the largest band's render_band (the whole scene's stages
+    # A-B; a rank runs them on its 1/n), plus the all-gather of the clip
+    # buffer and the frame's all-reduce bounded at the NVLink rate.  Device
+    # time of a whole program: the plain sum of a trace's kernel and copy
+    # records over its calls (a lower bound where the trace drops records).
+    from cudagaussianrenderer_torch.bench import device_busy_ms
+
+    def busy_ms(fn, reps=10):
+        fn()
+        ms = device_busy_ms(lambda: [fn() for _ in range(reps)])
+        return None if ms is None else ms / reps
+
+    t0 = time.perf_counter()
+    flat_ms = busy_ms(lambda: render_frame(scene, cds[0], config, capacity, device=dev))
+
+    def stages_ab(s, cam):
+        return _splat_colors(s, cam), project_splats(s.means, s.scales, s.quats, cam, config,
+                                                      opacities=s.opacities)
+
+    cam0 = camera_tensors(cds[0], dev)
+    ab_full = busy_ms(lambda: stages_ab(scene, cam0))
+    frame_bytes = config.screen_h * config.screen_w * 4
+    proj = {}
+    for n, b in bands.items():
+        cap = round_capacity(int(b["worst_candidates"] * 1.02), dev)
+        cd = cds[b["worst_camera"]]
+        band_ms = busy_ms(lambda: render_band(scene, cd, bcfg, cap, n, b["worst_band"],
+                                              device=dev))
+        shard = dataclasses.replace(scene, **{
+            k: getattr(scene, k)[..., :scene.padded_count // n]
+            for k in ("means", "scales", "quats", "opacities", "colors", "sh")
+            if getattr(scene, k) is not None})
+        ab_shard = busy_ms(lambda: stages_ab(shard, cam0))
+        gather_ms = scene.padded_count * GATHER_ROWS * 4 * (n - 1) / n / NVLINK_BYTES_PER_S * 1e3
+        reduce_ms = 2 * (n - 1) / n * frame_bytes / NVLINK_BYTES_PER_S * 1e3
+        p = dict(band_device_ms=band_ms, capacity=cap, stages_ab_shard_ms=ab_shard,
+                 gather_bound_ms=gather_ms, all_reduce_bound_ms=reduce_ms)
+        if band_ms is not None:
+            p["projected_ms"] = band_ms + gather_ms + reduce_ms
+            if ab_full is not None and ab_shard is not None:
+                p["projected_shard_ab_ms"] = p["projected_ms"] - ab_full + ab_shard
+        proj[n] = p
+        log(f"  projection, {n} cards [{card}]: largest band {band_ms} ms of device time "
+            f"(capacity {cap}) + all-gather bound {gather_ms:.4f} + all-reduce bound "
+            f"{reduce_ms:.4f} = {p.get('projected_ms')} ms/frame, a projection; with stages "
+            f"A-B on the rank's 1/{n} ({ab_shard} ms against {ab_full} ms for every splat): "
+            f"{p.get('projected_shard_ab_ms')} ms/frame; one card's flat frame {flat_ms} ms "
+            f"of device time")
+    result["projection"] = dict(
+        label="projection from one card, not a measurement of N cards",
+        link="NVLink 450 GB/s each way (H100 SXM data sheet)", flat_frame_device_ms=flat_ms,
+        stages_ab_device_ms=ab_full, **{str(n): p for n, p in proj.items()})
+    log(f"  (c) in {time.perf_counter() - t0:.1f} s")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1079,9 +1362,8 @@ def main() -> int:
         raise AssertionError(f"K4 raster differs by {hlsb} LSB on the huge-splat scene")
 
     # ---- 3. golden scenes --------------------------------------------------
-    # The non-banded cases of tools/tpu_selfcheck.py:52-106; its two banded
-    # cases run in phase 6, its balanced-bands case waits for the
-    # multi-device port.
+    # The non-banded cases of tools/tpu_selfcheck.py:52-106 and its
+    # balanced-bands case (:132-150); its two banded cases run in phase 6.
     log("== 3. golden scenes (port vs golden.py)")
     cases = [
         ("gaussian 128px", dict(n=500, seed=2, cfg=dict(screen_size=128))),
@@ -1111,6 +1393,18 @@ def main() -> int:
             raise AssertionError(f"{name}: saturated, raise the case capacity")
         want = golden_render(scene_to_numpy(gscene), gcam.camera_data(), gcfg)
         check(name, got.cpu().numpy(), want, pix_tol=c.get("pix_tol", PIX_TOL))
+    # tools/tpu_selfcheck.py:132-150: each of two balanced bands rendered by
+    # render_band, the placed frames summed.
+    from cudagaussianrenderer_torch.parallel import render_band
+
+    gcfg = RenderConfig(screen_size=128)
+    gscene = random_scene(500, seed=2, device=dev).pad_to_multiple(256)
+    gcam = Camera(aspect=gcfg.aspect).framed(gscene.bounds_min, gscene.bounds_max)
+    bsum = sum(render_band(gscene, gcam.camera_data(), gcfg, 16384, 2, d)[0].to(torch.int32)
+               for d in range(2))
+    require(int(bsum.max()) <= 255, "two balanced bands overlap")
+    want = golden_render(scene_to_numpy(gscene), gcam.camera_data(), gcfg)
+    check("balanced bands 2-dev 128px", bsum.to(torch.uint8).cpu().numpy(), want)
 
     # ---- 4. main path at full width ---------------------------------------
     log("== 4. main path: Renderer, 1M splats SH-3, 1024x1024, 8 orbit cameras")
@@ -1500,6 +1794,14 @@ def main() -> int:
         diff_and_fit(dev, Path(tmp))
         log(f"  phase 11 in {time.perf_counter() - t0:.1f} s")
 
+        # ---- 12. multi-device ----------------------------------------------------
+        log("== 12. multi-device: render_band of 2, 4 and 8 balanced bands at 1M splats "
+            "1024x1024; a world-size-1 NCCL group; the projected N-card frame")
+        t0 = time.perf_counter()
+        multi = multi_device(dev, renderer.scene, cams, frames, config, renderer.capacity,
+                             Path(tmp), card)
+        log(f"  phase 12 in {time.perf_counter() - t0:.1f} s")
+
     P = "cudagaussianrenderer_tpu/ops/"
     # name -> (source file, counted wrapper, path that runs it, TPU kernel)
     names = {
@@ -1536,6 +1838,7 @@ def main() -> int:
     # K1 also runs once per banded frame, in its segmented mode.
     line[0].update(banded_launches=blaunches["tile_edges"], **k1b)
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"multi_device": multi}), flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 
     python -m cudagaussianrenderer_torch.bench [n_splats] [frames] [--size N]
         [--falloff gaussian|epanechnikov] [--no-stages]
-        [--force-fallback-capacity] [--device cpu|cuda]
+        [--force-fallback-capacity] [--device cpu|cuda] [--devices N]
 
 Workload, as bench.py: ``random_scene(n, seed=0, min_scale=0.002,
 max_scale=0.053, extent=4.0)`` padded to a multiple of 4,096 (about 4 pairs
@@ -44,6 +44,21 @@ The default device is the card, and without one the bench raises.
 ``--device cpu`` runs the eager loop over the kernels' plain versions, for a
 smoke test of this script: ``method`` "eager", the CPU's times, null
 ``graph_frames_equal`` and ``device_busy_ms``.
+
+``--devices N`` > 1 renders every frame tile-row sharded over N ranks
+(parallel.distributed.render_frames_tilesharded; parallel.launch.spawn
+starts one process a card, NCCL, or with ``--device cpu`` N gloo ranks on
+the CPU), as bench.py's ``--devices``: the scene padded to 4,096 x N
+splats, a per-rank capacity of twice the probed capacity over N on the
+grain, the orbit eager (``method`` "eager") and timed on rank 0's host
+clock between a barrier and a synchronise, best of 3, with rank 0's
+``device_busy_ms`` from a trace of one orbit (its NCCL kernels, waits for
+the other ranks included) and ``collective_ms``, a key of this line only,
+those NCCL kernels' part of it (both null on the CPU); the rest is the
+rank's own work; ``pairs_per_frame`` is the frame's (the bands partition the
+pairs) and ``saturated`` says whether a band's candidates exceeded the
+per-rank capacity.  One line, no stages.  More ranks than cards raise;
+nothing falls back to fewer cards or to the CPU.
 """
 
 from __future__ import annotations
@@ -158,18 +173,98 @@ class GraphedOrbit:
         return stats, out
 
 
-def device_busy_ms(fn) -> float | None:
-    """Summed device time (ms) of every kernel and copy that ``fn()``
-    enqueues, from a torch.profiler trace; None if the trace holds none."""
+def device_ms_by_name(fn) -> dict:
+    """Device time (ms) of each kernel and copy name that ``fn()`` enqueues,
+    summed over its records in a torch.profiler trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 if us > 0 else None
+    return {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def device_busy_ms(fn) -> float | None:
+    """Summed device time (ms) of every kernel and copy that ``fn()``
+    enqueues, from a torch.profiler trace; None if the trace holds none."""
+    ms = sum(device_ms_by_name(fn).values())
+    return ms if ms > 0 else None
+
+
+def _headline(args, ms_per_frame, pairs_per_frame, capacity, devices, **extra) -> dict:
+    """bench.py's headline keys, then ``extra``."""
+    fps = 1e3 / ms_per_frame
+    pairs_per_sec = pairs_per_frame * fps
+    return {
+        "metric": f"fps_{args.size}x{args.size}_{args.n_splats // 1000}k_splats",
+        "value": round(fps, 2),
+        "unit": "frames/s",
+        # > 1: a higher sorted-pair throughput than the reference's.
+        "vs_baseline": round(pairs_per_sec / REF_PAIRS_PER_SEC, 3),
+        "ms_per_frame": round(ms_per_frame, 3),
+        "pairs_per_frame": pairs_per_frame,
+        "pairs_per_sec_M": round(pairs_per_sec / 1e6, 1),
+        "capacity": capacity,
+        "devices": devices,
+        **extra,
+    }
+
+
+def _sharded_rank(a: dict) -> dict:
+    """One rank of ``--devices N``: the bench's scene and orbit, every frame
+    tile-row sharded over the ranks.  Returns the headline (rank 0's clock)."""
+    import torch.distributed as dist
+
+    from .parallel.distributed import make_mesh, render_frames_tilesharded, stack_cameras
+
+    args = argparse.Namespace(**a)
+    mesh = make_mesh()
+    dev, world = mesh.device, mesh.shape["tiles"]
+    scene = random_scene(args.n_splats, seed=0, min_scale=0.002, max_scale=0.053, extent=4.0,
+                         device=dev).pad_to_multiple(GRAIN * world)
+    config = RenderConfig(screen_size=args.size, falloff=args.falloff)
+    cams = orbit_cameras(scene.bounds_min, scene.bounds_max, args.frames)
+    if args.force_fallback_capacity:
+        capacity = -(-int(args.n_splats * 4.6) // GRAIN) * GRAIN
+    else:
+        capacity = probe_capacity(scene, cams, config, dev)
+    # Per rank: the frame's capacity over the ranks, with 2x for the skew
+    # between bands (the middle bands carry more pairs than the mean).
+    capacity = max(GRAIN, -(-capacity * 2 // world // GRAIN) * GRAIN)
+    batch = stack_cameras(cams)
+
+    def orbit():
+        return render_frames_tilesharded(scene, batch, config, capacity, mesh)[1]
+
+    orbit()
+    best = float("inf")
+    for _ in range(3):
+        dist.barrier()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        aux = orbit()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        best = min(best, time.perf_counter() - t0)
+    ms_per_frame = best * 1e3 / args.frames
+    busy = nccl = None
+    if dev.type == "cuda":
+        by_name = device_ms_by_name(orbit)
+        busy = sum(by_name.values())
+        nccl = sum(ms for name, ms in by_name.items() if "nccl" in name.lower())
+    cands = int(aux["num_candidates"].max())
+    if cands > capacity:
+        _log(f"pair list saturated: a band's {cands} candidates > per-rank capacity {capacity}")
+    return _headline(
+        args, ms_per_frame, int(aux["num_pairs"].double().mean()), capacity, world,
+        method="eager", eager_fps=round(1e3 / ms_per_frame, 2),
+        eager_ms_per_frame=round(ms_per_frame, 3), graph_frames_equal=None,
+        device_busy_ms=None if busy is None else round(busy / args.frames, 3),
+        collective_ms=None if nccl is None else round(nccl / args.frames, 3),
+        saturated=cands > capacity, device=device_line(dev))
 
 
 def main(argv=None) -> dict:
@@ -183,9 +278,17 @@ def main(argv=None) -> dict:
     ap.add_argument("--force-fallback-capacity", action="store_true")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = ap.parse_args(argv)
-    if args.devices != 1:
-        raise NotImplementedError("the port renders on one device: --devices must be 1")
+    if args.devices < 1:
+        raise ValueError(f"--devices must be >= 1, got {args.devices}")
     dev = resolve_device(args.device)
+    if args.devices > 1:
+        from .parallel.launch import spawn
+
+        result = spawn(_sharded_rank, args.devices, dev.type, vars(args))[0]
+        print(json.dumps(result), flush=True)
+        _log(f"headline ({args.devices} ranks, eager): {result['value']} FPS "
+             f"({result['ms_per_frame']} ms/frame)")
+        return result
     cuda = dev.type == "cuda"
 
     def sync():
@@ -237,32 +340,16 @@ def main(argv=None) -> dict:
         ms_per_frame = eager_ms
     del eager_frames
     stats = stats.cpu()
-    fps = 1e3 / ms_per_frame
-    pairs_per_frame = int(stats[:, 0].double().mean())
     saturated = int(stats[:, 1].max()) > capacity
     if saturated:
         _log(f"pair list saturated: max candidates {int(stats[:, 1].max())} > capacity "
              f"{capacity}; a frame rendered truncated")
-    pairs_per_sec = pairs_per_frame * fps
-    result = {
-        "metric": f"fps_{args.size}x{args.size}_{args.n_splats // 1000}k_splats",
-        "value": round(fps, 2),
-        "unit": "frames/s",
-        # > 1: a higher sorted-pair throughput than the reference's.
-        "vs_baseline": round(pairs_per_sec / REF_PAIRS_PER_SEC, 3),
-        "ms_per_frame": round(ms_per_frame, 3),
-        "pairs_per_frame": pairs_per_frame,
-        "pairs_per_sec_M": round(pairs_per_sec / 1e6, 1),
-        "capacity": capacity,
-        "devices": 1,
-        "method": "cuda_graph" if cuda else "eager",
-        "eager_fps": round(1e3 / eager_ms, 2),
-        "eager_ms_per_frame": round(eager_ms, 3),
-        "graph_frames_equal": graph_equal,
-        "device_busy_ms": None if busy is None else round(busy, 3),
-        "saturated": saturated,
-        "device": device_line(dev),
-    }
+    result = _headline(
+        args, ms_per_frame, int(stats[:, 0].double().mean()), capacity, 1,
+        method="cuda_graph" if cuda else "eager", eager_fps=round(1e3 / eager_ms, 2),
+        eager_ms_per_frame=round(eager_ms, 3), graph_frames_equal=graph_equal,
+        device_busy_ms=None if busy is None else round(busy, 3), saturated=saturated,
+        device=device_line(dev))
     print(json.dumps(result), flush=True)
     _log(f"headline ({result['method']}): {result['value']} FPS ({result['ms_per_frame']} "
          f"ms/frame); eager {result['eager_fps']} FPS ({result['eager_ms_per_frame']} ms/frame)")

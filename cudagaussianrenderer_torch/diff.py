@@ -657,6 +657,81 @@ def ssim(a, b, *, window: int = 11, sigma: float = 1.5, c1: float = 0.01 ** 2,
     return torch.mean(num / den)
 
 
+def target_tensor(image, device) -> torch.Tensor:
+    """A target image ([H, W, >=3], uint8 or float in [0, 1], tensor or
+    NumPy) as the [H, W, 3] float32 RGB the loss takes, on ``device``."""
+    a = _np(image)
+    scale = 255.0 if a.dtype == np.uint8 else 1.0
+    return torch.from_numpy(np.ascontiguousarray(a[..., :3], np.float32)).to(device) / scale
+
+
+def view_loss(
+    params: DiffSplats,
+    camera: dict,
+    target: torch.Tensor,
+    config: RenderConfig,
+    capacity: int,
+    k_max: int,
+    *,
+    l1_weight: float = 0.0,
+    ssim_weight: float = 0.0,
+    l2_weight: float = 1.0,
+    depth_weight: float = 0.0,
+    depth_target: Optional[torch.Tensor] = None,
+    gain: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    remat: Optional[bool] = None,
+    device=None,
+):
+    """The training loss of one view, as ``fit`` takes it: render_diff of
+    ``camera``, then ``l2_weight`` MSE + ``l1_weight`` L1 + ``ssim_weight``
+    (1 - SSIM) of its RGB against ``target`` ([H, W, 3] float in [0, 1]),
+    and, with ``depth_weight`` and ``depth_target``, a masked depth L1 (NaN
+    marks unsupervised pixels).  ``gain`` and ``bias`` ([3] each) expose
+    the render per view first.
+
+    Returns (loss: a 0-d tensor, or 0.0 when every weight is 0, the
+    structure's num_candidates).
+    """
+    use_depth = depth_weight > 0 and depth_target is not None
+    out = render_diff(params, camera, config, capacity, k_max, return_depth=use_depth,
+                      remat=remat, device=device)
+    image, structure = out[0], out[-1]
+    rgb = image[..., :3]
+    if gain is not None:
+        # Per-view exposure on the RENDER, so the target stays the ground
+        # truth and the splats learn exposure-free colour.
+        rgb = rgb * gain[None, None, :] + bias[None, None, :]
+    err = rgb - target
+    loss = l2_weight * torch.mean(err * err) if l2_weight else 0.0
+    if l1_weight:
+        loss = loss + l1_weight * torch.mean(torch.abs(err))
+    if ssim_weight:
+        # The 3DGS D-SSIM term (1 - SSIM); the paper's loss is
+        # l1_weight=0.8, ssim_weight=0.2, l2_weight=0.
+        loss = loss + ssim_weight * (1.0 - ssim(rgb, target))
+    if use_depth:
+        # Masked L1 on expected linear clip depth: only pixels whose
+        # target is finite (NaN = unknown depth).
+        depth = out[1]
+        m = torch.isfinite(depth_target)
+        d0 = torch.where(m, depth_target, 0.0)
+        n_valid = _clip(torch.sum(m.to(torch.float32)), 1.0)
+        loss = loss + depth_weight * (torch.sum(torch.abs(depth - d0) * m) / n_valid)
+    return loss, structure.num_candidates
+
+
+def loss_grads(loss, inputs) -> list:
+    """The gradients of ``loss`` with respect to each tensor of ``inputs``.
+    A tensor the loss does not reach (colors when SH is present; every one
+    when the view holds no pair, so that the loss has no graph) gets
+    zeros, as jax.grad gives."""
+    grads = [None] * len(inputs)
+    if isinstance(loss, torch.Tensor) and loss.requires_grad:
+        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g for g, x in zip(grads, inputs)]
+
+
 # ---------------------------------------------------------------------------
 # Optimizers: optax's Adam arithmetic, written out
 # ---------------------------------------------------------------------------
@@ -954,12 +1029,7 @@ def fit(
         densify_until = steps // 2
     params = tree_map(lambda a: a.detach().to(dev), params)
 
-    def image_tensor(t):
-        a = _np(t)
-        scale = 255.0 if a.dtype == np.uint8 else 1.0
-        return torch.from_numpy(np.ascontiguousarray(a[..., :3], np.float32)).to(dev) / scale
-
-    tgts = [image_tensor(t) for t in targets]
+    tgts = [target_tensor(t, dev) for t in targets]
     cams = [_camera(c, dev) for c in cameras_data]
 
     use_depth = depth_weight > 0 and depth_targets is not None
@@ -967,33 +1037,6 @@ def fit(
         dtgts = [torch.from_numpy(np.asarray(_np(d), np.float32)).to(dev) for d in depth_targets]
         if len(dtgts) != len(cameras_data):
             raise ValueError(f"{len(dtgts)} depth targets for {len(cameras_data)} cameras")
-
-    def loss_fn(p, cam, target, dtarget, gain=None, bias=None):
-        out = render_diff(p, cam, config, capacity, k_max, return_depth=use_depth,
-                          remat=remat, device=dev)
-        image, structure = out[0], out[-1]
-        rgb = image[..., :3]
-        if gain is not None:
-            # Per-view exposure on the RENDER, so the target stays the ground
-            # truth and the splats learn exposure-free colour.
-            rgb = rgb * gain[None, None, :] + bias[None, None, :]
-        err = rgb - target
-        loss = l2_weight * torch.mean(err * err) if l2_weight else 0.0
-        if l1_weight:
-            loss = loss + l1_weight * torch.mean(torch.abs(err))
-        if ssim_weight:
-            # The 3DGS D-SSIM term (1 - SSIM); the paper's loss is
-            # l1_weight=0.8, ssim_weight=0.2, l2_weight=0.
-            loss = loss + ssim_weight * (1.0 - ssim(rgb, target))
-        if use_depth:
-            # Masked L1 on expected linear clip depth: only pixels whose
-            # target is finite (NaN = unknown depth).
-            depth = out[1]
-            m = torch.isfinite(dtarget)
-            d0 = torch.where(m, dtarget, 0.0)
-            n_valid = _clip(torch.sum(m.to(torch.float32)), 1.0)
-            loss = loss + depth_weight * (torch.sum(torch.abs(depth - d0) * m) / n_valid)
-        return loss, structure.num_candidates
 
     # Optional per-view parameters ("extras") train alongside the splats,
     # each with its own Adam.  Their moments are not checkpointed (the
@@ -1029,14 +1072,12 @@ def fit(
         cam2 = apply_camera_delta(cam, ex["cam"].dr[idx], ex["cam"].dt[idx]) if "cam" in ex else cam
         gain = ex["exp"].gain[idx] if "exp" in ex else None
         bias = ex["exp"].bias[idx] if "exp" in ex else None
-        loss, cand = loss_fn(p, cam2, target, dtarget, gain, bias)
-        inputs = tree_leaves(p) + tree_leaves(ex)
-        # A leaf the loss does not reach (colors when SH is present; every
-        # leaf when the view holds no pair) gets zeros, as jax.grad gives.
-        grads = [None] * len(inputs)
-        if isinstance(loss, torch.Tensor) and loss.requires_grad:
-            grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, inputs)]
+        loss, cand = view_loss(
+            p, cam2, target, config, capacity, k_max, l1_weight=l1_weight,
+            ssim_weight=ssim_weight, l2_weight=l2_weight,
+            depth_weight=depth_weight, depth_target=dtarget,
+            gain=gain, bias=bias, remat=remat, device=dev)
+        grads = loss_grads(loss, tree_leaves(p) + tree_leaves(ex))
         n_p = len(tree_leaves(p))
         with torch.no_grad():
             p = tree_map(torch.detach, p)

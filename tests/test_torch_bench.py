@@ -58,10 +58,25 @@ def test_bench_cpu_lines_and_pair_count(capsys):
     assert last["capacity"] % bench.GRAIN == 0
 
 
-def test_bench_refuses_what_it_cannot_measure():
-    with pytest.raises(NotImplementedError):
-        bench.main(["2000", "2", "--devices", "2", "--device", "cpu"])
+def test_bench_refuses_what_it_cannot_measure(capsys):
+    """--devices 2 on the CPU runs two gloo ranks, tile-row sharded, with
+    --devices 1's pairs/frame; without a card the default device raises,
+    for one rank or two."""
+    one = bench.main(["2000", "2", "--size", "128", "--device", "cpu", "--no-stages"])
+    two = bench.main(["2000", "2", "--size", "128", "--device", "cpu", "--devices", "2"])
+    lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
+    assert lines == [one, two]
+    assert set(two) == set(one) | {"collective_ms"} and two["devices"] == 2 and one["devices"] == 1
+    assert two["device_busy_ms"] is None and two["collective_ms"] is None
+    assert two["pairs_per_frame"] == one["pairs_per_frame"] > 0
+    assert two["method"] == "eager" and two["device"] == "cpu" and two["saturated"] is False
+    assert two["capacity"] == max(bench.GRAIN, -(-one["capacity"] * 2 // 2 // bench.GRAIN)
+                                  * bench.GRAIN)
+    with pytest.raises(ValueError):
+        bench.main(["2000", "2", "--devices", "0", "--device", "cpu"])
     if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            bench.main(["2000", "2", "--size", "128", "--devices", "2"])
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             bench.main(["2000", "2", "--size", "128"])
 

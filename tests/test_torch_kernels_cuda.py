@@ -24,6 +24,7 @@ from cudagaussianrenderer_torch.render import (
 )
 
 from torch_port_cases import (
+    card_fit_dp_case, card_sharded_case, mesh_frames_case,
     COMPACT_CASES, COMPACT_CG, EDGE_CORNER_CASES, compact_counts, cull_run, edge_corner_keys, widen,
 )
 
@@ -566,3 +567,64 @@ def test_fit_step_on_card_matches_cpu(dev):
     assert abs(float(l_d[0]) - float(l_c[0])) <= 1e-5 * abs(float(l_c[0]))
     for a, b in zip(diff.tree_leaves((p_d, c_d, e_d)), diff.tree_leaves((p_c, c_c, e_c))):
         assert float((a.cpu() - b).abs().max()) <= 1e-4
+
+
+def _multi_device_close(got, want, msg=""):
+    """tests/test_distributed.py's rule for a sharded frame against the
+    single-device one (a band's list aligns the raster's early-exit chunks
+    elsewhere)."""
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert (d > 1).mean() < 0.001, f"{msg}: max diff {d.max()}"
+
+
+def test_render_band_on_card_sums_to_the_sharded_frame(dev):
+    """render_band on the card, summed over 1, 2 and 4 bands, against the
+    frame of render_frame_sharded in a world-size-1 NCCL group: one band
+    byte-equal, and every band count with the frame's pair count."""
+    from cudagaussianrenderer_torch.parallel import launch
+
+    img, pairs, bands = launch.spawn(card_sharded_case, 1, "cuda", (1, 2, 4))[0]
+    assert img.shape == (128, 128, 4) and img[..., 3].max() == 255
+    np.testing.assert_array_equal(bands[1][0], img.astype(np.int32))
+    for n, (total, band_pairs) in bands.items():
+        assert band_pairs == pairs, n
+        assert total.max() <= 255
+        _multi_device_close(total.astype(np.uint8), img, f"{n} bands")
+
+
+def test_fit_dp_on_card_matches_the_hand_steps(dev):
+    """Two fit_dp steps of a world-size-1 NCCL group (Adam, L1 + D-SSIM)
+    against the same steps by hand on the card: every parameter leaf within
+    DIFF_GRAD_RTOL of its largest value, the losses within 1e-6."""
+    from cudagaussianrenderer_torch.parallel import launch
+
+    rel, got, want = launch.spawn(card_fit_dp_case, 1, "cuda", 64, 200, 2)[0]
+    assert len(rel) == 5 and max(rel) <= DIFF_GRAD_RTOL, rel
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def test_bench_refuses_more_ranks_than_cards(dev):
+    from cudagaussianrenderer_torch import bench
+
+    with pytest.raises(RuntimeError, match="CUDA devices"):
+        bench.main(["2000", "2", "--size", "128", "--devices",
+                    str(torch.cuda.device_count() + 1)])
+
+
+def test_sharded_frames_across_cards(dev):
+    """Up to four cards, one NCCL rank each: the sharded frames equal the
+    single-card band programs byte for byte on every rank, with the
+    single-card pair count, and a data-parallel step leaves bit-identical
+    replicas.  Needs two cards or more."""
+    from cudagaussianrenderer_torch.parallel import launch
+
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        pytest.skip("needs two CUDA devices or more: NCCL takes one card a rank")
+    ranks = launch.spawn(mesh_frames_case, n, "cuda", n)
+    for checks, uniform, balanced, leaves in ranks:
+        assert all(checks.values()), checks
+        np.testing.assert_array_equal(uniform, ranks[0][1])
+        np.testing.assert_array_equal(balanced, ranks[0][2])
+        for a, b in zip(leaves, ranks[0][3]):
+            assert a.tobytes() == b.tobytes()

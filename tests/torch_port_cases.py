@@ -3,9 +3,12 @@ the card-only kernel tests: clip-data edits for the emit tests (each returns
 a function that changes a dict of per-splat clip-data arrays, numpy or
 torch, in place) and per-band candidate counts for the band compaction;
 and helpers of the CLI and viewer tests: the suite's image rule, a free
-port, and the comparison of two ``fit`` runs.  Imports neither jax nor the
-JAX package."""
+port, and the comparison of two ``fit`` runs; and the rank programs of the
+multi-device tests (run by parallel.launch.spawn, which starts each rank
+from a fresh import of this module).  Imports neither jax nor the JAX
+package."""
 
+import dataclasses
 import re
 import socket
 
@@ -253,3 +256,257 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# ---------------------------------------------------------------------------
+# Multi-device cases: the rank programs that parallel.launch.spawn runs
+# ---------------------------------------------------------------------------
+
+# The JAX package's multi-device tests (tests/test_distributed.py): 128x128
+# frames, a per-rank capacity of 32768 for the skewed scene.
+PAR_SIZE = 128
+PAR_SHARD_CAP = 32768
+
+
+def skewed_scene(n_dev, device="cpu"):
+    """tests/test_distributed.py's skewed scene for ``n_dev`` ranks:
+    512 * n_dev splats (seed 7) squashed into the top 15% of their box, so
+    the top uniform band carries most of the pairs."""
+    from cudagaussianrenderer_torch import random_scene
+
+    scene = random_scene(512 * n_dev, seed=7, device=device).pad_to_multiple(256 * n_dev)
+    m = scene.means.clone()
+    m[1] = m[1].max() - (m[1] - m[1].min()) * 0.15
+    return dataclasses.replace(scene, means=m)
+
+
+class SGD:
+    """optax.sgd(learning_rate) on the port's parameter trees: updates
+    -learning_rate * g, no state (the oracle transform of the
+    data-parallel step's tests)."""
+
+    def __init__(self, learning_rate):
+        self.learning_rate = learning_rate
+
+    def init(self, params):
+        return ()
+
+    def update(self, grads, state, params=None):
+        from cudagaussianrenderer_torch.diff import tree_map
+
+        return tree_map(lambda g: -self.learning_rate * g, grads), state
+
+
+def dp_step(dp, device):
+    """One make_train_step_dp step (L2 loss, SGD) on the rank's mesh axis
+    "dp", from the inputs ``dp`` (NumPy parameters of diff._splats, camera
+    data, targets, and the step's sizes).  Returns (the new parameters'
+    leaves as NumPy, the loss)."""
+    from cudagaussianrenderer_torch import RenderConfig, diff
+    from cudagaussianrenderer_torch.parallel import make_mesh, make_train_step_dp, view_batch
+
+    mesh = make_mesh(axis="dp")
+    params = diff._splats(**dp["params"], device=device)
+    tx = SGD(dp["lr"])
+    step, _ = make_train_step_dp(RenderConfig(screen_size=dp["size"]), dp["capacity"],
+                                 dp["k_max"], tx, mesh, l1_weight=0.0, ssim_weight=0.0,
+                                 l2_weight=1.0)
+    cams, tgts = view_batch(dp["cams"], dp["targets"], device)
+    new, _, loss = step(params, tx.init(params), cams, tgts)
+    return [x.cpu().numpy() for x in diff.tree_leaves(new)], loss
+
+
+def gloo_cases(n, dp, cycle):
+    """Every multi-device case of one rank of an ``n``-rank gloo group, on
+    the CPU: the sharded frames (uniform, balanced, saturated), the
+    DistributedRenderer (padding, capacity, 1-D and 2-D batches, custom
+    axis names), one data-parallel step (inputs ``dp``) and a fit_dp whose
+    views do not divide (inputs ``cycle``).  NumPy results."""
+    from cudagaussianrenderer_torch import Camera, RenderConfig, diff, orbit_cameras, random_scene
+    from cudagaussianrenderer_torch.parallel import distributed as pd
+    from cudagaussianrenderer_torch.parallel import fit_dp, make_mesh
+
+    torch.set_num_threads(1)
+    out = {}
+    cfg = RenderConfig(screen_size=PAR_SIZE, stable_sort=True)
+    mesh = pd.make_mesh()
+    scene = skewed_scene(n)
+    cam = Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max)
+    for name, c in (("uniform", cfg), ("balanced", dataclasses.replace(cfg, balanced_bands=True))):
+        img, aux = pd.render_frame_sharded(scene, cam.camera_data(), c, PAR_SHARD_CAP, mesh)
+        out[name] = (img.numpy(), int(aux["num_candidates"]), int(aux["num_pairs"]))
+
+    plain = RenderConfig(screen_size=PAR_SIZE)
+    s = random_scene(256 * n, seed=3, device="cpu").pad_to_multiple(256 * n)
+    c3 = Camera(aspect=1.0).framed(s.bounds_min, s.bounds_max)
+    img, aux = pd.render_frame_sharded(s, c3.camera_data(), plain, 256, mesh)
+    out["saturated"] = (img.numpy(), int(aux["num_candidates"]), int(aux["num_pairs"]))
+
+    s = random_scene(1000, seed=5, device="cpu")
+    c5 = Camera(aspect=1.0).framed(s.bounds_min, s.bounds_max)
+    r = pd.DistributedRenderer(s, plain, mesh=mesh)
+    first = r.render(c5)
+    cap0 = r.capacity
+    out["renderer"] = dict(padded=r.scene.padded_count, first=first, cap0=cap0,
+                           second=r.render(c5), cap1=r.capacity)
+
+    s = random_scene(400, seed=13, device="cpu")
+    r = pd.DistributedRenderer(s, plain, mesh=mesh)
+    cams = orbit_cameras(s.bounds_min, s.bounds_max, 3)
+    out["batch_1d"] = (r.render_batch(cams, check_saturation=False),
+                       np.stack([r.render(c, check_saturation=False) for c in cams]))
+
+    mesh2 = pd.make_mesh_2d(2, n // 2)
+    s = random_scene(512, seed=9, device="cpu").pad_to_multiple(512)
+    cams = orbit_cameras(s.bounds_min, s.bounds_max, 4)
+    imgs, aux = pd.render_frames_sharded(s, pd.stack_cameras(cams), plain, 8192, mesh2)
+    out["frames_2d"] = (imgs.numpy(), aux["num_pairs"].numpy())
+
+    s = random_scene(400, seed=7, device="cpu")
+    r = pd.DistributedRenderer(s, plain, mesh=pd.make_mesh_2d(2, n // 2, axes=("f", "t")))
+    out["custom_axes"] = (r.axes, r.render_batch(orbit_cameras(s.bounds_min, s.bounds_max, 2)))
+
+    out["dp"] = dp_step(dp, "cpu")
+    params = diff._splats(**cycle["params"], device="cpu")
+    fitted, losses = fit_dp(params, cycle["cams"], cycle["targets"],
+                            RenderConfig(screen_size=cycle["size"]), capacity=cycle["capacity"],
+                            k_max=cycle["k_max"], mesh=make_mesh(axis="dp"), steps=cycle["steps"],
+                            tx=SGD(cycle["lr"]), l1_weight=0.0, ssim_weight=0.0, l2_weight=1.0)
+    out["cycle"] = ([x.numpy() for x in diff.tree_leaves(fitted)], losses)
+    return out
+
+
+def mesh_frames_case(n):
+    """One rank of an ``n``-rank group on the group's device (each rank its
+    own card under NCCL): the skewed scene's uniform and balanced sharded
+    frames against the port's single-device band programs on the same
+    device (render_frame_multipass with a pass a rank; the sum of
+    render_band), and against render_frame by the multi-device rule; then
+    one data-parallel Adam step.  Returns (checks: name -> bool, the
+    frames as NumPy, the stepped parameters as NumPy)."""
+    from cudagaussianrenderer_torch import Camera, RenderConfig, diff, render_frame
+    from cudagaussianrenderer_torch import render_frame_multipass
+    from cudagaussianrenderer_torch.parallel import make_mesh, render_band, render_frame_sharded
+    from cudagaussianrenderer_torch.parallel.train import make_train_step_dp, view_batch
+
+    mesh = make_mesh()
+    dev = mesh.device
+    cfg = RenderConfig(screen_size=PAR_SIZE, stable_sort=True)
+    bcfg = dataclasses.replace(cfg, balanced_bands=True)
+    scene = skewed_scene(n, dev)
+    cam = Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max).camera_data()
+    uniform, uaux = render_frame_sharded(scene, cam, cfg, PAR_SHARD_CAP, mesh)
+    balanced, baux = render_frame_sharded(scene, cam, bcfg, PAR_SHARD_CAP, mesh)
+    flat, faux = render_frame(scene, cam, cfg, PAR_SHARD_CAP * n, device=dev)
+    passes, _ = render_frame_multipass(scene, cam, cfg, PAR_SHARD_CAP, n, device=dev)
+    bands = sum(render_band(scene, cam, bcfg, PAR_SHARD_CAP, n, d, device=dev)[0].to(torch.int32)
+                for d in range(n))
+
+    def close(a, b):
+        return bool(((a.to(torch.int32) - b.to(torch.int32)).abs() > 1).float().mean() < 0.001)
+
+    checks = dict(
+        uniform_is_multipass=bool(torch.equal(uniform, passes)),
+        balanced_is_band_sum=bool(torch.equal(balanced.to(torch.int32), bands)),
+        pairs=int(uaux["num_pairs"]) == int(baux["num_pairs"]) == int(faux["num_pairs"]),
+        uniform_close=close(uniform, flat), balanced_close=close(balanced, flat),
+        balanced_beats_uniform=int(baux["num_candidates"]) < int(uaux["num_candidates"]),
+    )
+    _, cams, targets = rendered_views(48, 3, 32, n)
+    params = anisotropic(diff.random_init(24, scene.bounds_min, scene.bounds_max, seed=2,
+                                          device=dev))
+    tx = diff.Adam(5e-3)
+    step, _ = make_train_step_dp(RenderConfig(screen_size=32), 2048, 128, tx, make_mesh(axis="dp"))
+    cams_b, tgts_b = view_batch([c.camera_data() for c in cams], targets, dev)
+    stepped, _, loss = step(params, tx.init(params), cams_b, tgts_b)
+    checks["dp_loss_finite"] = bool(np.isfinite(loss))
+    return (checks, uniform.cpu().numpy(), balanced.cpu().numpy(),
+            [x.cpu().numpy() for x in diff.tree_leaves(stepped)])
+
+
+def card_sharded_case(n_bands):
+    """One rank of a world-size-1 NCCL group, on the card: tools/
+    tpu_selfcheck.py's balanced-bands scene (128x128, 500 splats, seed 2)
+    through render_frame_sharded (balanced), and the sum of render_band's
+    frames and pair counts for each band count of ``n_bands``."""
+    from cudagaussianrenderer_torch import Camera, RenderConfig, random_scene
+    from cudagaussianrenderer_torch.parallel import make_mesh, render_band, render_frame_sharded
+
+    mesh = make_mesh()
+    cfg = RenderConfig(screen_size=128, balanced_bands=True)
+    scene = random_scene(500, seed=2, device=mesh.device).pad_to_multiple(256)
+    cam = Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max).camera_data()
+    img, aux = render_frame_sharded(scene, cam, cfg, 16384, mesh)
+    bands = {}
+    for n in n_bands:
+        total = torch.zeros(img.shape, dtype=torch.int32, device=mesh.device)
+        pairs = 0
+        for d in range(n):
+            full, baux = render_band(scene, cam, cfg, 16384, n, d, device=mesh.device)
+            total += full.to(torch.int32)
+            pairs += int(baux["num_pairs"])
+        bands[n] = (total.cpu().numpy(), pairs)
+    return img.cpu().numpy(), int(aux["num_pairs"]), bands
+
+
+def card_fit_dp_case(size, n_splats, steps):
+    """One rank of a world-size-1 NCCL group, on the card: ``steps`` steps
+    of fit_dp (Adam, the 3DGS L1 + D-SSIM loss) on two orbit views of a
+    random scene, and the same steps by hand (diff.view_loss, loss_grads,
+    Adam).  Returns each leaf's max |difference| over its max |value|, and
+    the two runs' losses."""
+    from cudagaussianrenderer_torch import RenderConfig, diff
+    from cudagaussianrenderer_torch.parallel import fit_dp, make_mesh
+
+    dev = make_mesh(axis="dp").device
+    scene, cams, targets = rendered_views(n_splats, 3, size, 2)
+    cd = [c.camera_data() for c in cams]
+    init = anisotropic(diff.random_init(n_splats, scene.bounds_min, scene.bounds_max, seed=1,
+                                        device=dev))
+    config = RenderConfig(screen_size=size)
+    cap, k_max = 1 << 15, 256
+    got, got_losses = fit_dp(init, cd, targets, config, capacity=cap, k_max=k_max,
+                             mesh=make_mesh(axis="dp"), steps=steps)
+    want, want_losses = hand_steps(init, cd, targets, config, cap, k_max, steps, dev)
+    return leaf_rel_diffs(got, want), list(got_losses), want_losses
+
+
+def anisotropic(params, seed=1):
+    """``params`` with each splat's log-scales spread apart: an isotropic
+    splat's rotation has no gradient but rounding noise, which Adam's
+    normalized step makes lr-sized, so runs that should agree would not."""
+    stretch = np.random.default_rng(seed).normal(0, 0.4, tuple(params.log_scales.shape))
+    return params._replace(log_scales=params.log_scales + torch.from_numpy(
+        stretch.astype(np.float32)).to(params.log_scales.device))
+
+
+def hand_steps(params, cameras_data, targets, config, capacity, k_max, steps, device):
+    """fit_dp's steps on one rank, written out: view i % len(views) a step,
+    diff.view_loss with the 3DGS weights (L1 0.8, D-SSIM 0.2), its
+    gradients (diff.loss_grads), diff.Adam(5e-3).  Returns (params, the
+    losses)."""
+    from cudagaussianrenderer_torch import diff
+
+    tx = diff.Adam(5e-3)
+    p, state, losses = params, tx.init(params), []
+    for i in range(steps):
+        v = i % len(cameras_data)
+        q = diff.tree_map(lambda a: a.detach().requires_grad_(True), p)
+        loss, _ = diff.view_loss(q, cameras_data[v], diff.target_tensor(targets[v], device),
+                                 config, capacity, k_max, l1_weight=0.8, ssim_weight=0.2,
+                                 l2_weight=0.0, device=device)
+        grads = diff.loss_grads(loss, diff.tree_leaves(q))
+        with torch.no_grad():
+            p = diff.tree_map(torch.detach, q)
+            upd, state = tx.update(diff.tree_unflatten(p, grads), state, p)
+            p = diff.apply_updates(p, upd)
+        losses.append(float(loss.detach()))
+    return p, losses
+
+
+def leaf_rel_diffs(got, want):
+    """Each leaf's max |got - want| over its max |want|."""
+    from cudagaussianrenderer_torch import diff
+
+    return [float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+            for a, b in zip(diff.tree_leaves(got), diff.tree_leaves(want))]
