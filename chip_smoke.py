@@ -17,7 +17,13 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
      through the port, each against the port's golden.py oracle, and its
      balanced-bands case (two bands of parallel.render_band, summed);
   4. the main path at full width: Renderer on the 1M-splat SH-3 scene at
-     1024x1024 over 8 orbit cameras, with the launch counts of K1-K4;
+     1024x1024 over 8 orbit cameras, ORBIT_PASSES passes through
+     Renderer.render (a key's first frame eager, its second captured as a
+     CUDA graph, later ones replayed), with the launch counts of K1-K4 over
+     those passes; then a traced pass of replays, in which each of K1-K4
+     must appear once a frame; every frame byte-equal to render_frame at its
+     key, the renderer's state to the eager controller's, and that eager
+     loop timed beside it; the keys, the hit rate and memory_reserved;
   5. banded kernel parity at full-width shapes: the same scene and camera
      under sort_bands=16: each of K5-K8 against its plain PyTorch version
      (exact), K1 in its segmented mode on the per-band-sorted keys, the
@@ -26,10 +32,12 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
   6. banded golden scenes: the two banded scenes of tools/tpu_selfcheck.py
      against golden.py;
   7. the banded main path at full width: Renderer with sort_bands=16 on
-     the same scene and cameras, with the launch counts of K5-K8, K1, K4;
-     after its warm-up frames the parity of phase 5 once more, at the
-     capacities and band rows the timed frames start from (the K5-K8 times
-     and bounds of the per-kernel line are taken there);
+     the same scene and cameras: after its warm-up frames the parity of
+     phase 5 once more, at the capacities and band rows the timed frames
+     start from (the K5-K8 times and bounds of the per-kernel line are
+     taken there); then the passes of phase 4, with K5-K8, K1 and K4;
+     then replayed passes of the flat and the banded Renderer in turns,
+     and each path's device busy time and idle share;
   8. scene IO on the card: the scene of phase 4 written as raw values to a
      .ply, loaded by the native and by the Python importer (held to
      tests/test_native.py's rule against each other), rendered against
@@ -389,6 +397,160 @@ def sync(dev):
 
     if dev.type == "cuda":
         torch.cuda.synchronize()
+
+
+# Each kernel's name in a profiler trace, by its wrapper (every kernel sits
+# in an anonymous namespace of its csrc/ file).
+TRACE_NAMES = {
+    "tile_edges": r"::edges_kernel<",
+    "interleave_rows": r"::interleave_kernel\(",
+    "emit_slots": r"::emit_kernel<false>",
+    "rasterize_tiles": r"::raster_kernel<",
+    "interleave_rows_padded": r"::interleave_padded_kernel\(",
+    "stack_rows": r"::stack(_bulk)?_kernel[<(]",
+    "compact_rows": r"::compact_kernel<",
+    "emit_slots_banded": r"::emit_kernel<true>",
+}
+# Passes of phases 4 and 7 over the orbit through Renderer.render: a key's
+# first frame runs eager, its second captures the frame, later ones replay.
+ORBIT_PASSES = 3
+
+
+def orbit_passes(r, cams, passes):
+    """``passes`` passes of Renderer ``r`` over ``cams``, each frame on the
+    host clock (render reads the frame back, so the clock holds the card's
+    work).  Returns a record a frame (pass, camera, how it ran, ms, its key
+    and band rows, a copy of the renderer before it, the state after it,
+    the image) and torch.cuda.memory_reserved() before the first pass and
+    after each.  The images go into host memory touched beforehand, so that
+    keeping them costs no frame a page fault."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_cases import renderer_state
+
+    store = np.ones((passes * len(cams), r.config.screen_h, r.config.screen_w, 4), np.uint8)
+    recs, reserved = [], [torch.cuda.memory_reserved()]
+    for p in range(passes):
+        for i, c in enumerate(cams):
+            require(not r.saturated, "an adaptive Renderer saturated")
+            before = copy.copy(r)
+            t0 = time.perf_counter()
+            img = r.render(c)
+            ms = (time.perf_counter() - t0) * 1e3
+            store[len(recs)] = img
+            recs.append(dict(
+                p=p, i=i, method=r.last_method, ms=ms, key=before._key(),
+                rows=None if before.band_rows is None else before.band_rows.copy(),
+                before=before, after=renderer_state(r), image=store[len(recs)]))
+            del img
+        reserved.append(torch.cuda.memory_reserved())
+    return recs, reserved
+
+
+def eager_twins(recs, cams):
+    """Every recorded frame again as the eager renderer made it
+    (tests/torch_port_cases.py:eager_render): each image must equal the
+    recorded one byte for byte, and the state after it the recorded state.
+    Returns the eager frames' ms on the host clock (render_frame, one
+    readback of the counts, the image)."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_cases import eager_render, renderer_state
+
+    ms = []
+    for n, rec in enumerate(recs):
+        t0 = time.perf_counter()
+        img = eager_render(rec["before"], cams[rec["i"]], rec["key"], rec["rows"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        require(np.array_equal(img, rec["image"]),
+                f"frame {n} ({rec['method']}, pass {rec['p']}, camera {rec['i']}) differs from "
+                f"render_frame at key {rec['key']}")
+        require(renderer_state(rec["before"]) == rec["after"],
+                f"frame {n} ({rec['method']}) leaves {rec['after']}, the eager frame "
+                f"{renderer_state(rec['before'])}")
+    return ms
+
+
+def traced_pass(r, cams, wrappers):
+    """One more pass of ``r`` over ``cams`` in a profiler trace.  Every frame
+    must replay its graph, and every kernel of ``wrappers`` must appear once
+    a frame.  Returns (records of each kernel, device busy ms a frame: the
+    sum of the trace's kernel and copy records, host ms a frame)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    methods = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for c in cams:
+            r.render(c)
+            methods.append(r.last_method)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / len(cams)
+    require(methods == ["replay"] * len(cams), f"the traced pass did not only replay: {methods}")
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    records = {w: sum(1 for e in device if re.search(TRACE_NAMES[w], e.key)) for w in wrappers}
+    busy = sum(e.self_device_time_total for e in device) / 1e3 / len(cams)
+    if any(n != len(cams) for n in records.values()):
+        for name in sorted({e.key for e in device}):
+            log(f"    traced: {name[:120]}")
+        raise AssertionError(f"kernel records in a trace of {len(cams)} replayed frames: {records}")
+    return records, busy, wall
+
+
+def graphed_orbit(label, r, cams, counted):
+    """Phases 4 and 7: ORBIT_PASSES passes of Renderer ``r`` over ``cams``,
+    the counts of the wrappers ``counted`` set to 0 just before and read
+    just after (eager frames and captures count; replays call no wrapper);
+    a traced pass of replays; every frame against its eager twin.  Returns
+    (records, launches, trace records, numbers for the log and PERF.md)."""
+    import numpy as np
+
+    for fn in counted:
+        fn.launches = 0
+    seen_before = set(r._visited)
+    recs, reserved = orbit_passes(r, cams, ORBIT_PASSES)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    log(f"  launches in {len(recs)} {label} frames through Renderer.render: {launches}")
+    for name, count in launches.items():
+        require(count >= 1, f"{name} never launched in the {label} main path")
+    trace, busy, traced_ms = traced_pass(r, cams, [fn.__name__ for fn in counted])
+    log(f"  traced pass of {len(cams)} replayed frames: kernel records {trace} (one a frame), "
+        f"device busy {busy:.3f} ms/frame of {traced_ms:.3f} ms/frame traced")
+    eager_ms = eager_twins(recs, cams)
+    log(f"  every graphed frame byte-equal to render_frame at its key and band rows, the "
+        f"renderer's state equal to the eager controller's")
+    two = recs[:2 * len(cams)]
+    keys = [rec["key"] for rec in two]
+    hits = sum(k in seen_before or k in keys[:n] for n, k in enumerate(keys))
+
+    def mean(values):
+        return float(np.mean(values)) if values else None
+
+    by_method = {m: [rec["ms"] for rec in recs if rec["method"] == m]
+                 for m in ("eager", "capture", "replay")}
+    out = dict(
+        ms={m: mean(v) for m, v in by_method.items()},
+        frames={m: len(v) for m, v in by_method.items()},
+        eager_loop_ms=mean(eager_ms), busy_ms=busy, keys=len(set(keys)),
+        hit_rate=hits / len(keys), reserved_gib=[b / 2**30 for b in reserved],
+        by_frame=[[rec["method"][0] + str(rec["p"]), round(rec["ms"], 3)] for rec in recs])
+    log(f"  {label} Renderer.render ms/frame: first visits (eager) {out['ms']['eager']}, second "
+        f"visits (capture) {out['ms']['capture']}, replays {out['ms']['replay']} "
+        f"({out['frames']}); the eager render_frame loop at the same keys "
+        f"{out['eager_loop_ms']:.3f}; by frame (e/c/r and pass, ms) {out['by_frame']}")
+    log(f"  {label}: {out['keys']} distinct keys over two passes, hit rate {out['hit_rate']:.3f}; "
+        f"memory_reserved before and after each pass "
+        f"{[round(g, 3) for g in out['reserved_gib']]} GiB")
+    return recs, launches, trace, out
 
 
 def run_cli(dev, argv, counted):
@@ -1144,7 +1306,6 @@ def main() -> int:
         return 1
 
     from cudagaussianrenderer_torch import RenderConfig, Renderer, orbit_cameras, random_scene
-    from cudagaussianrenderer_torch.bench import device_busy_ms
     from cudagaussianrenderer_torch.golden import golden_render, scene_to_numpy
     from cudagaussianrenderer_torch.models.camera import Camera
     from cudagaussianrenderer_torch.ops import banded, expand, ranges, raster
@@ -1412,23 +1573,11 @@ def main() -> int:
                raster.rasterize_tiles)
     renderer.render(cams[0])  # warm-up: sizes the capacity from its candidates
     torch.cuda.synchronize()
-    for fn in counted:
-        fn.launches = 0
-    frames, cands = [], []
-    t0 = time.perf_counter()
-    for c in cams:
-        frames.append(renderer.render(c))
-        cands.append(renderer.last_candidates)
-    wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counted}
-    ms_frame = wall * 1e3 / len(cams)
-    log(f"  {len(cams)} frames: {ms_frame:.3f} ms/frame, {1e3 / ms_frame:.2f} FPS, "
-        f"pairs/frame mean {sum(cands) / len(cands):.0f} (min {min(cands)}, max {max(cands)}), "
+    recs, launches, trace, flat_numbers = graphed_orbit("flat", renderer, cams, counted)
+    frames = [rec["image"] for rec in recs[:len(cams)]]
+    cands = [rec["after"][4] for rec in recs[:len(cams)]]
+    log(f"  pairs/frame mean {sum(cands) / len(cands):.0f} (min {min(cands)}, max {max(cands)}), "
         f"capacity {renderer.capacity}, saturated {renderer.saturated}")
-    log(f"  launches in the main path: {launches}")
-    for name, count in launches.items():
-        if count < len(cams):
-            raise AssertionError(f"{name} launched {count} times in {len(cams)} frames")
     for i, img in enumerate(frames):
         if img.shape != (1024, 1024, 4) or img[..., 3].max() != 255 or img[..., :3].max() == 0:
             raise AssertionError(f"frame {i} is blank or misshapen: {img.shape}")
@@ -1692,44 +1841,25 @@ def main() -> int:
     kernels.update(settled_kernels)
     torch.cuda.synchronize()
 
-    def timed_orbit(r):
-        """(frames, ms/frame, per-frame state) of one pass over the cameras."""
-        frames_, state = [], []
-        t0_ = time.perf_counter()
-        for c_ in cams:
-            cap_, ccap_ = r.capacity, getattr(r, "compact_capacity", 0)
-            frames_.append(r.render(c_))
-            state.append((cap_, ccap_, r.last_candidates, r.last_band_totals, r.last_band_splats))
-        return frames_, (time.perf_counter() - t0_) * 1e3 / len(cams), state
-
-    for fn in bcounted:
-        fn.launches = 0
-    bframes, banded_ms, bstate = timed_orbit(brenderer)
-    blaunches = {fn.__name__: fn.launches for fn in bcounted}
-    _, flat_ms_2, _ = timed_orbit(renderer)
-    _, banded_ms_2, bstate_2 = timed_orbit(brenderer)
-    _, flat_ms_3, _ = timed_orbit(renderer)
-    bcands = [st[2] for st in bstate]
-    log(f"  {len(cams)} frames: {banded_ms:.3f} ms/frame, {1e3 / banded_ms:.2f} FPS, "
-        f"pairs/frame mean {sum(bcands) / len(bcands):.0f}, capacity {brenderer.capacity}, "
+    brecs, blaunches, btrace, banded_numbers = graphed_orbit("banded", brenderer, cams, bcounted)
+    bframes = [rec["image"] for rec in brecs[:len(cams)]]
+    bcands = [rec["after"][4] for rec in brecs[:len(cams)]]
+    log(f"  pairs/frame mean {sum(bcands) / len(bcands):.0f}, capacity {brenderer.capacity}, "
         f"compact capacity {brenderer.compact_capacity}")
-    log(f"  launches in the banded main path: {blaunches}")
-    for name, count in blaunches.items():
-        require(count >= len(cams), f"{name} launched {count} times in {len(cams)} banded frames")
-    for i, (img, (cap_, ccap_, cands_, totals_, splats_)) in enumerate(
-            zip(bframes + [None] * len(cams), bstate + bstate_2)):
-        if img is not None:
-            require(img.shape == (1024, 1024, 4) and img[..., 3].max() == 255
-                    and img[..., :3].max() > 0, f"banded frame {i} is blank or misshapen")
-        require(int(totals_.max()) <= cap_ // G and int(splats_.max()) <= ccap_ // G,
-                f"banded frame {i}: a band saturated (totals {totals_.tolist()}, "
-                f"splats {splats_.tolist()}, capacity {cap_}, compact {ccap_})")
-        require(int(totals_.sum()) == cands_, f"banded frame {i}: band totals do not add up")
+    for i, rec in enumerate(brecs):
+        img, (cap_, ccap_) = rec["image"], rec["key"]
+        cands_, totals_, splats_ = rec["after"][4], rec["after"][6], rec["after"][7]
+        require(img.shape == (1024, 1024, 4) and img[..., 3].max() == 255
+                and img[..., :3].max() > 0, f"banded frame {i} is blank or misshapen")
+        require(max(totals_) <= cap_ // G and max(splats_) <= ccap_ // G,
+                f"banded frame {i}: a band saturated (totals {totals_}, splats {splats_}, "
+                f"capacity {cap_}, compact {ccap_})")
+        require(sum(totals_) == cands_, f"banded frame {i}: band totals do not add up")
     require(bcands == cands, f"banded candidates {bcands} differ from the flat path's {cands}")
     check("banded frame 0 vs flat frame 0", bframes[0], frames[0])
     rows_now = brenderer.band_rows
     log(f"  band rows after the orbit: {rows_now.tolist()}; last per-band totals "
-        f"{bstate[-1][3].tolist()}")
+        f"{brecs[-1]['after'][6]}")
     require(not (rows_now == uniform_rows).all(), "the band rows never moved off uniform")
     require(rows_now[0] == 0 and rows_now[-1] == bcfg.tiles_y and (rows_now[1:] >= rows_now[:-1]).all(),
             f"band rows {rows_now.tolist()} are not a monotone partition of the tile rows")
@@ -1737,18 +1867,27 @@ def main() -> int:
     log("  per-stage ms (CUDA events, stages back to back): "
         + ", ".join(f"{k} {v:.3f}" for k, v in bstages.items())
         + f"; sum {sum(bstages.values()):.3f}")
-    log(f"  flat vs banded ms/frame, in turns (flat, banded, flat, banded, flat): "
-        f"{ms_frame:.3f}, {banded_ms:.3f}, {flat_ms_2:.3f}, {banded_ms_2:.3f}, {flat_ms_3:.3f}")
 
-    # How much of a frame the card works: kernel and copy time from a
-    # profiler trace of 4 frames, against the untraced frame time above.
-    for label, r, wall_ms in (("flat", renderer, flat_ms_3), ("banded", brenderer, banded_ms_2)):
-        busy = device_busy_ms(lambda: [r.render(c_) for c_ in cams[:4]])
-        if busy is None:
-            log(f"  {label}: device busy share not measured (the trace holds no device time)")
-        else:
-            log(f"  {label}: device busy {busy / 4:.3f} ms/frame of {wall_ms:.3f} ms/frame, "
-                f"idle share {1 - busy / 4 / wall_ms:.3f}")
+    def replayed_ms(r):
+        t0_ = time.perf_counter()
+        for c_ in cams:
+            r.render(c_)
+            require(r.last_method == "replay", "a settled orbit did not replay")
+        return (time.perf_counter() - t0_) * 1e3 / len(cams)
+
+    turns = [replayed_ms(r) for r in (renderer, brenderer, renderer, brenderer, renderer)]
+    log("  replayed Renderer.render ms/frame, in turns (flat, banded, flat, banded, flat): "
+        + ", ".join(f"{t:.3f}" for t in turns))
+    # How much of a frame the card works: the traced pass's kernel and copy
+    # time against the untraced frame times.
+    for label, nums, replayed in (("flat", flat_numbers, turns[0::2]),
+                                  ("banded", banded_numbers, turns[1::2])):
+        nums["turns_ms"] = replayed
+        nums["idle_share"] = 1 - nums["busy_ms"] / (sum(replayed) / len(replayed))
+        nums["eager_idle_share"] = 1 - nums["busy_ms"] / nums["eager_loop_ms"]
+        log(f"  {label}: device busy {nums['busy_ms']:.3f} ms/frame; idle share of a replayed "
+            f"frame {nums['idle_share']:.3f}, of an eager frame {nums['eager_idle_share']:.3f}")
+        log(f"  {label} numbers [{card}]: {json.dumps(nums)}")
 
     # ---- 8. scene IO on the card -------------------------------------------
     log("== 8. scene IO: the 1M-splat SH-3 scene through .ply (native and Python "
@@ -1805,18 +1944,19 @@ def main() -> int:
     P = "cudagaussianrenderer_tpu/ops/"
     # name -> (source file, counted wrapper, path that runs it, TPU kernel)
     names = {
-        "edges": ("edges", "tile_edges", launches, P + "ranges.py:40"),
-        "interleave": ("interleave", "interleave_rows", launches, P + "expand.py:107"),
-        "emit": ("emit", "emit_slots", launches, P + "expand.py:206"),
-        "raster": ("raster", "rasterize_tiles", launches, P + "raster.py:132"),
-        "interleave_padded": ("interleave", "interleave_rows_padded", blaunches, P + "banded.py:55"),
-        "stack": ("stack", "stack_rows", blaunches, P + "banded.py:265"),
-        "compact": ("compact", "compact_rows", blaunches, P + "banded.py:88"),
-        "emit_banded": ("emit", "emit_slots_banded", blaunches,
+        "edges": ("edges", "tile_edges", (launches, trace), P + "ranges.py:40"),
+        "interleave": ("interleave", "interleave_rows", (launches, trace), P + "expand.py:107"),
+        "emit": ("emit", "emit_slots", (launches, trace), P + "expand.py:206"),
+        "raster": ("raster", "rasterize_tiles", (launches, trace), P + "raster.py:132"),
+        "interleave_padded": ("interleave", "interleave_rows_padded", (blaunches, btrace),
+                              P + "banded.py:55"),
+        "stack": ("stack", "stack_rows", (blaunches, btrace), P + "banded.py:265"),
+        "compact": ("compact", "compact_rows", (blaunches, btrace), P + "banded.py:88"),
+        "emit_banded": ("emit", "emit_slots_banded", (blaunches, btrace),
                         P + "expand.py:206 (bpb > 0; launched at ops/banded.py:517)"),
     }
     line = []
-    for key, (source, wrapper, counts_of, replaces) in names.items():
+    for key, (source, wrapper, (counts_of, records_of), replaces) in names.items():
         k = kernels[key]
         bytes_ms = k["bytes"] / HBM_BYTES_PER_S * 1e3
         # K4 has two operation floors: f32 and the special-function units.
@@ -1827,6 +1967,7 @@ def main() -> int:
             source=f"cudagaussianrenderer_torch/csrc/{source}.cu",
             replaces=replaces,
             launches=counts_of[wrapper],
+            replayed_launches=records_of[wrapper],
             max_abs_err=k["max_abs_err"],
             ms=k["ms"],
             device_ms=k["device_ms"],
@@ -1836,7 +1977,8 @@ def main() -> int:
             library_ms=k["library_ms"],
         ))
     # K1 also runs once per banded frame, in its segmented mode.
-    line[0].update(banded_launches=blaunches["tile_edges"], **k1b)
+    line[0].update(banded_launches=blaunches["tile_edges"],
+                   banded_replayed_launches=btrace["tile_edges"], **k1b)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"multi_device": multi}), flush=True)
     print(json.dumps({"kernels": line}), flush=True)

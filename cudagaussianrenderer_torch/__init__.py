@@ -19,7 +19,9 @@ The banded frame (``RenderConfig(sort_bands=G)``), besides K1 and K4:
 
 Each wrapper runs its kernel for CUDA tensors and its plain PyTorch
 version for CPU tensors.  Entry points default to the card; pass
-``device="cpu"`` to run on the CPU.
+``device="cpu"`` to run on the CPU.  On the card ``Renderer.render``
+replays one CUDA graph of the frame per capacity key, as the JAX
+``Renderer`` reuses one jitted frame per key.
 
 Scenes come from a trained 3DGS ``.ply`` (``load_gaussian_ply``, through
 the native loader in native/ when it builds), an antimatter15 ``.splat``

@@ -78,7 +78,8 @@ from .models.scene import random_scene
 from .ops.binning import splat_row_packs, splat_tile_rects
 from .ops.projection import project_splats
 from .render import (
-    Renderer, camera_array, camera_tensors, camera_views, render_frame, render_frame_tensors,
+    Renderer, camera_array, camera_tensors, camera_views, capture_frame, render_frame,
+    render_frame_tensors,
 )
 from .utils.device import resolve_device
 
@@ -120,8 +121,9 @@ def probe_capacity(scene, cams, config: RenderConfig, dev) -> int:
 
 
 class GraphedOrbit:
-    """One flat frame captured as a CUDA graph over a static camera buffer,
-    replayed once for each camera of ``cams``.
+    """One flat frame captured as a CUDA graph over a static camera buffer
+    (render.capture_frame, as Renderer captures its frames), replayed once
+    for each camera of ``cams``.
 
     The kernel wrappers' launch counters count the capture, not the
     replays: a replay runs on the card without calling any wrapper.
@@ -137,25 +139,7 @@ class GraphedOrbit:
             image, aux = render_frame_tensors(scene, views, config, capacity)
             return image, torch.stack([aux["num_pairs"], aux["num_candidates"]])
 
-        torch.cuda.synchronize(dev)
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            frame()
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-        # PyTorch's recipe: warm up on a side stream, so that every lazy
-        # initialisation (the kernels' libraries, their cached device
-        # attributes, the sort's workspace) happens before the capture.
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                frame()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.image, self.counts = frame()
+        self.graph, (self.image, self.counts) = capture_frame(frame, dev)
         self.frames = len(cams)
 
     def run(self, images: bool = False):

@@ -24,11 +24,17 @@ gets more capacity.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 on the CPU every kernel wrapper runs its plain PyTorch version.
+
+``Renderer`` keeps the JAX Renderer's compiled frame: on the card it
+replays one CUDA graph of the whole frame (render_frame_tensors) per
+capacity key, the counterpart of the JAX ``_get_fn`` jit cache, so the
+host issues one replay a frame instead of hundreds of launches.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 import warnings
 from typing import Dict, Optional, Tuple
@@ -326,6 +332,41 @@ def render_frame_tensors(
     return image, dict(num_candidates=pairs.num_candidates, num_pairs=pairs.num_pairs, **aux)
 
 
+def run_sync_free(frame):
+    """``frame()`` run eagerly under ``torch.cuda.set_sync_debug_mode("error")``:
+    a host sync or a host-to-device copy inside it raises, where a capture
+    would bake a stale value or a dead host pointer into the graph."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return frame()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def capture_frame(frame, device, *, pool=None, checked: bool = False):
+    """Capture ``frame()`` as a CUDA graph on ``device``, by PyTorch's
+    recipe: (1) one eager frame under run_sync_free, unless ``checked``
+    says the caller has run one; (2) a warm-up on a side stream, so that
+    every lazy initialisation (the kernels' libraries, their cached device
+    attributes, the sort's workspace) happens before the capture; (3) the
+    capture, into the memory pool ``pool`` (None: a pool of its own).
+
+    Returns (the graph, the captured call's outputs).  The outputs are
+    static: each replay writes them anew.  A failed capture raises."""
+    if not checked:
+        run_sync_free(frame)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        frame()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        outputs = frame()
+    return graph, outputs
+
+
 def render_frame_multipass(
     scene: GaussianScene,
     camera_data: dict,
@@ -395,9 +436,23 @@ STAGE_NAMES = (
 
 
 class Renderer:
-    """Stateful host-side renderer: capacity management, the banded
-    path's boundary controller, and optional per-stage profiling, on one
-    device (default: the card)."""
+    """Stateful host-side renderer: graph caching, capacity management,
+    the banded path's boundary controller, and optional per-stage
+    profiling, on one device (default: the card).
+
+    The frame (render_frame_tensors over this renderer's scene) reads the
+    camera and the band rows from static tensors, allocated once and
+    refilled in place before each frame.  On the card it runs from a cache
+    keyed like the JAX Renderer's jit cache (``_get_fn``): ``capacity``
+    for a flat renderer, ``(capacity, compact_capacity)`` for a banded one;
+    the band rows are an input, so rebalancing captures nothing new.  A
+    key's first frame runs eagerly under run_sync_free, its second captures
+    the frame as a CUDA graph (capture_frame) and replays it, and every
+    later one replays it.  A failed capture or replay raises.  On the CPU
+    the same frame runs eagerly over the same static tensors.
+
+    A graph holds the scene's tensors, as the JAX jit's closure holds the
+    config: a new scene or config takes a new Renderer."""
 
     # Hard capacity ceiling: prefix sums travel as exact f32 integers.
     MAX_CAPACITY = _MAX_CAPACITY
@@ -437,6 +492,22 @@ class Renderer:
         if self.banded:
             self.capacity = self._round_banded(self.capacity)
             self.compact_capacity = self._round_banded(2 * self.scene.padded_count)
+        # The frame's static inputs, outside every graph's memory pool.
+        self._camera = torch.zeros(CAMERA_FLOATS, dtype=torch.float32, device=self.device)
+        self._camera_views = camera_views(self._camera)
+        self._band_rows = (torch.zeros(self.n_bands + 1, dtype=torch.int32, device=self.device)
+                           if self.banded else None)
+        # key -> (graph, image, counts); keys whose eager first frame ran.
+        # All graphs share one memory pool.  That is safe because replays
+        # run one at a time on one stream, each replay's outputs are copied
+        # to the host before the next replay, and the static inputs live
+        # outside the pool: a graph may overwrite another's temporaries and
+        # outputs, but never while they are still to be read.
+        self._graphs: Dict[object, tuple] = {}
+        self._visited: set = set()
+        self._pool = None
+        # How the last frame ran: "eager", "capture" or "replay".
+        self.last_method: Optional[str] = None
 
     @classmethod
     def _bucket(cls, candidates: int) -> int:
@@ -489,43 +560,88 @@ class Renderer:
     def render(self, camera: Camera, *, check_saturation: bool = True) -> np.ndarray:
         """Render and return a [H, W, 4] uint8 numpy image.
 
-        ``check_saturation`` reads the candidate count back to the host
-        and resizes the pair-list capacity for the NEXT frame; the current
-        frame renders with a truncated list if it overflowed.
+        The camera and band rows go into the static inputs, then the frame
+        runs at the current key (eager, captured or replayed; see the
+        class).  ``check_saturation`` reads the frame's counts back to the
+        host in one copy and resizes the lists for the NEXT frame; the
+        current frame renders with a truncated list if it overflowed.
+        Without it only the image is read back.
         """
         if self.saturated:
             # Demo.cpp:356-366 grow-on-saturation behavior.
             cap = min(self.capacity * 2, self.MAX_CAPACITY)
             self.capacity = self._round_banded(cap) if self.banded else cap
             self.saturated = False
-        image, aux = render_frame(
-            self.scene, camera.camera_data(), self.config, self.capacity,
-            band_rows=self.band_rows,
-            compact_capacity=self.compact_capacity if self.banded else 0,
-            device=self.device,
-        )
+        self._camera.copy_(torch.from_numpy(camera_array(camera.camera_data())))
+        if self.banded:
+            self._band_rows.copy_(_band_rows_tensor(self.band_rows, self.config, "cpu"))
+        image, counts = self._run(self._key())
         self.frame_count += 1
-        if check_saturation and self.banded:
-            self._update_banded(aux)
-        elif check_saturation:
-            candidates = int(aux["num_candidates"])
-            self.last_candidates = candidates
-            self.last_truncated = candidates > self.capacity
-            if candidates > self.MAX_CAPACITY:
-                warn_capacity_ceiling(self, candidates)
-            if self.adaptive_capacity:
-                self.capacity = self._bucket(candidates)
+        if check_saturation:
+            counts = counts.cpu().numpy()
+            if self.banded:
+                self._update_banded(counts)
             else:
-                self.saturated = candidates >= self.capacity
+                self._update_flat(int(counts[0]))
         return image.cpu().numpy()
 
-    def _update_banded(self, aux: Dict[str, torch.Tensor]) -> None:
+    def _key(self):
+        """The graph cache's key: the JAX Renderer's jit cache key."""
+        return (self.capacity, self.compact_capacity) if self.banded else self.capacity
+
+    def _frame(self, key):
+        """The frame at ``key`` over the static inputs: (u8 image, int32
+        counts: num_candidates, and for a banded frame band_totals and
+        band_splats after it)."""
+        capacity, compact_capacity = key if self.banded else (key, 0)
+        image, aux = render_frame_tensors(
+            self.scene, self._camera_views, self.config, capacity,
+            band_rows=self._band_rows, compact_capacity=compact_capacity,
+        )
+        counts = [aux["num_candidates"].reshape(1)]
+        if self.banded:
+            counts += [aux["band_totals"], aux["band_splats"]]
+        return image, torch.cat(counts)
+
+    def _run(self, key):
+        """The frame at ``key``: eager on the CPU; on the card eager on the
+        key's first visit, captured on its second, replayed after that."""
+        frame = functools.partial(self._frame, key)
+        if self.device.type != "cuda":
+            self.last_method = "eager"
+            return frame()
+        if key in self._graphs:
+            graph, image, counts = self._graphs[key]
+            self.last_method = "replay"
+        elif key not in self._visited:
+            self._visited.add(key)
+            self.last_method = "eager"
+            return run_sync_free(frame)
+        else:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph, (image, counts) = capture_frame(
+                frame, self.device, pool=self._pool, checked=True)
+            self._graphs[key] = (graph, image, counts)
+            self.last_method = "capture"
+        graph.replay()
+        return image, counts
+
+    def _update_flat(self, candidates: int) -> None:
+        """The capacity for the next frame, from this frame's candidates."""
+        self.last_candidates = candidates
+        self.last_truncated = candidates > self.capacity
+        if candidates > self.MAX_CAPACITY:
+            warn_capacity_ceiling(self, candidates)
+        if self.adaptive_capacity:
+            self.capacity = self._bucket(candidates)
+        else:
+            self.saturated = candidates >= self.capacity
+
+    def _update_banded(self, counts: np.ndarray) -> None:
         """Capacity, compact capacity and band boundaries for the next
-        frame, from one readback of this frame's counts."""
+        frame, from this frame's counts (read back in one copy)."""
         g = self.n_bands
-        counts = torch.cat(
-            [aux["num_candidates"].reshape(1), aux["band_totals"], aux["band_splats"]]
-        ).cpu().numpy()
         candidates, totals, splats = int(counts[0]), counts[1 : 1 + g], counts[1 + g :]
         self.last_candidates = candidates
         self.last_band_totals, self.last_band_splats = totals, splats

@@ -459,6 +459,60 @@ def test_graphed_orbit_equals_eager(dev, cfg_kw):
         assert st == [int(aux["num_pairs"]), int(aux["num_candidates"])]
 
 
+@pytest.mark.parametrize("cfg_kw,sh", [(dict(screen_size=128), 3), (dict(screen_size=128), 0),
+                                       (dict(screen_size=256, sort_bands=16), 3),
+                                       (dict(screen_size=256, sort_bands=16), 0)],
+                         ids=["flat-sh3", "flat-sh0", "banded16-sh3", "banded16-sh0"])
+def test_graphed_renderer_equals_eager(dev, cfg_kw, sh):
+    """Renderer.render over an orbit with its keys interleaved A, B, A, B,
+    A, B, A: a key's first frame eager, its second captured, later ones
+    replayed from graphs that share one memory pool.  Every frame equals
+    render_frame at its key and band rows byte for byte, and the state it
+    leaves equals the eager controller's."""
+    import copy
+
+    from torch_port_cases import eager_render, renderer_state
+
+    scene = pt.random_scene(3000, seed=0, min_scale=0.002, max_scale=0.053, sh_degree=sh,
+                            device=dev)
+    cams = pt.orbit_cameras(scene.bounds_min, scene.bounds_max, 7)
+    r = pt.Renderer(scene, pt.RenderConfig(**cfg_kw))
+    r.render(cams[0])
+    a = r._key()
+    b = (a[0], 2 * a[1]) if r.banded else 2 * a
+    methods = []
+    for i, key in enumerate([a, b, a, b, a, b, a]):
+        if r.banded:
+            r.capacity, r.compact_capacity = key
+        else:
+            r.capacity = key
+        twin = copy.copy(r)
+        rows = None if r.band_rows is None else r.band_rows.copy()
+        got = r.render(cams[i])
+        methods.append(r.last_method)
+        want = eager_render(twin, cams[i], key, rows)
+        assert np.array_equal(got, want), f"frame {i} ({methods[-1]})"
+        assert renderer_state(r) == renderer_state(twin), f"frame {i} ({methods[-1]})"
+    assert methods == ["eager", "eager", "capture", "capture", "replay", "replay", "replay"]
+    assert set(r._graphs) == {a, b} and r._pool is not None
+
+
+def test_banded_sh3_frame_is_sync_free(dev):
+    """One banded SH-3 frame (K5-K8, the [G, N] prefix math, the batched
+    sort) under torch.cuda.set_sync_debug_mode("error"): no host sync and no
+    host-to-device copy inside, so a capture of it holds no stale value."""
+    from cudagaussianrenderer_torch.render import render_frame_tensors, run_sync_free
+
+    scene = pt.random_scene(3000, seed=0, sh_degree=3, device=dev).pad_to_multiple(4096)
+    cfg = pt.RenderConfig(screen_size=256, sort_bands=16)
+    cam = camera_tensors(pt.Camera(aspect=1.0).framed(scene.bounds_min,
+                                                      scene.bounds_max).camera_data(), dev)
+    rows = _band_rows_tensor(None, cfg, dev)
+    image, aux = run_sync_free(lambda: render_frame_tensors(scene, cam, cfg, 1 << 18,
+                                                            band_rows=rows))
+    assert image.shape == (256, 256, 4) and int(aux["num_candidates"]) > 0
+
+
 def test_ssim_on_card_with_tf32_allowed_matches_cpu(dev):
     """diff.ssim gives float32 results on the card whatever the TF32 flags
     say: within 1e-5 of the CPU, and within [-1, 1] on a flat image."""
@@ -628,3 +682,32 @@ def test_sharded_frames_across_cards(dev):
         np.testing.assert_array_equal(balanced, ranks[0][2])
         for a, b in zip(leaves, ranks[0][3]):
             assert a.tobytes() == b.tobytes()
+
+
+def test_failed_capture_raises(dev):
+    """A frame that waits for the host cannot be captured: the capture
+    raises, the renderer keeps no graph and does not fall back to the
+    eager frame; capture_frame's own eager check (sync debug mode "error")
+    raises on it before any capture.  Last in this file, so that no other
+    test runs after a failed capture in the same process."""
+    from cudagaussianrenderer_torch.render import capture_frame
+
+    scene = pt.random_scene(500, seed=2, device=dev)
+    r = pt.Renderer(scene, pt.RenderConfig(screen_size=128))
+    cam = pt.Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max)
+    r.render(cam)
+    r.render(cam)  # the settled key's first visit
+    assert r.last_method == "eager"
+    frame = r._frame
+
+    def syncing(key):
+        image, counts = frame(key)
+        counts.sum().item()  # a host sync: not allowed while capturing
+        return image, counts
+
+    r._frame = syncing
+    with pytest.raises(RuntimeError):
+        r.render(cam)
+    assert r._graphs == {}
+    with pytest.raises(RuntimeError):
+        capture_frame(lambda: syncing(r._key()), dev)

@@ -3,7 +3,8 @@ the card-only kernel tests: clip-data edits for the emit tests (each returns
 a function that changes a dict of per-splat clip-data arrays, numpy or
 torch, in place) and per-band candidate counts for the band compaction;
 and helpers of the CLI and viewer tests: the suite's image rule, a free
-port, and the comparison of two ``fit`` runs; and the rank programs of the
+port, and the comparison of two ``fit`` runs; the eager twin of a
+Renderer's graphed frame; and the rank programs of the
 multi-device tests (run by parallel.launch.spawn, which starts each rank
 from a fresh import of this module).  Imports neither jax nor the JAX
 package."""
@@ -83,6 +84,40 @@ def rendered_views(n_splats, seed, size, n_views, **scene_kw):
     cams = orbit_cameras(scene.bounds_min, scene.bounds_max, n_views)
     targets = [renderer.render(c)[..., :3].astype(np.float32) / 255.0 for c in cams]
     return scene, cams, targets
+
+
+def renderer_state(r):
+    """What a Renderer's frame leaves in it for the next frame."""
+    def listed(a):
+        return None if a is None else a.tolist()
+
+    return (r.capacity, getattr(r, "compact_capacity", None), listed(r.band_rows), r.saturated,
+            r.last_candidates, r.last_truncated, listed(r.last_band_totals),
+            listed(r.last_band_splats))
+
+
+def eager_render(before, camera, key, band_rows):
+    """A frame as the eager Renderer made it: render_frame at ``key`` (the
+    renderer's cache key) and ``band_rows``, one readback of the counts, the
+    image; then the renderer's controller on those counts, run on
+    ``before``, a copy of the renderer made before the frame.  Returns the
+    [H, W, 4] u8 image; ``before`` then holds the state after the frame."""
+    from cudagaussianrenderer_torch.render import render_frame
+
+    cap, ccap = key if before.banded else (key, 0)
+    img, aux = render_frame(before.scene, camera.camera_data(), before.config, cap,
+                            band_rows=band_rows, compact_capacity=ccap,
+                            device=before.scene.means.device)
+    counts = [aux["num_candidates"].reshape(1)]
+    if before.banded:
+        counts += [aux["band_totals"], aux["band_splats"]]
+    counts = torch.cat(counts).cpu().numpy()
+    img = img.cpu().numpy()
+    if before.banded:
+        before._update_banded(counts)
+    else:
+        before._update_flat(int(counts[0]))
+    return img
 
 
 def free_port() -> int:
