@@ -54,14 +54,14 @@ K4_VARIANTS = {
     "committed": [],
     "8 pixels a thread": [
         ("tile_size % 4 == 0", "tile_size % 8 == 0"),
-        ("raster_kernel<4, true> : raster_kernel<4, false>",
-         "raster_kernel<8, true> : raster_kernel<8, false>"),
+        ("pick<4, true>(dev) : pick<4, false>(dev)",
+         "pick<8, true>(dev) : pick<8, false>(dev)"),
         ("(wide ? 4 : 1)", "(wide ? 8 : 1)"),
     ],
     "2 pixels a thread": [
         ("tile_size % 4 == 0", "tile_size % 2 == 0"),
-        ("raster_kernel<4, true> : raster_kernel<4, false>",
-         "raster_kernel<2, true> : raster_kernel<2, false>"),
+        ("pick<4, true>(dev) : pick<4, false>(dev)",
+         "pick<2, true>(dev) : pick<2, false>(dev)"),
         ("(wide ? 4 : 1)", "(wide ? 2 : 1)"),
     ],
     "pair loop unrolled 2": [("#pragma unroll 4\n      for (int k = lo;",
@@ -96,7 +96,7 @@ K4_VARIANTS = {
     "no ex2 (timing only)": [("? ex2_approx(fminf(m, co.y))", "? fminf(m, co.y)")],
     # 2^x on the FMA pipe for the first of a thread's four pixels.
     "polynomial ex2 for 1 pixel of 4": [
-        ("template <int kPx, bool kGaussian>\n__global__",
+        ("template <int kPx, bool kGaussian, bool kDevOffset>\n__global__",
          "__device__ __forceinline__ float ex2_poly(float x) {\n"
          "  x = fmaxf(x, -126.0f);\n"
          "  const float t = x + 12582912.0f;\n"
@@ -109,7 +109,7 @@ K4_VARIANTS = {
          "  p = fmaf(p, f, 1.0f);\n"
          "  return __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));\n"
          "}\n\n"
-         "template <int kPx, bool kGaussian>\n__global__"),
+         "template <int kPx, bool kGaussian, bool kDevOffset>\n__global__"),
         ("? ex2_approx(fminf(m, co.y))",
          "? (p < 1 ? ex2_poly(fminf(m, co.y)) : ex2_approx(fminf(m, co.y)))"),
     ],
@@ -619,7 +619,7 @@ def emit_raster(tools, scene, cam0, cfg):
 
         def call():
             code = fn(c["pair_data"].data_ptr(), c["pair_data"].shape[1], starts.data_ptr(),
-                      counts.data_ptr(), cfg_.total_tiles, cfg_.tiles_x, cfg_.tile_size, 0,
+                      counts.data_ptr(), cfg_.total_tiles, cfg_.tiles_x, cfg_.tile_size, 0, None,
                       2.0 / cfg_.screen_w, 2.0 / cfg_.screen_h, cfg_.raster_chunk,
                       cfg_.transmittance_eps if eps is None else eps, 1, 0, out.data_ptr(),
                       torch.cuda.current_stream().cuda_stream)
@@ -628,7 +628,7 @@ def emit_raster(tools, scene, cam0, cfg):
         return call
 
     print("== K4 variants (device ms; 'no exit' blends every sorted pair)")
-    k4_args = [cb.P, cb.I64, cb.P, cb.P, cb.I32, cb.I32, cb.I32, cb.I32, cb.F32, cb.F32,
+    k4_args = [cb.P, cb.I64, cb.P, cb.P, cb.I32, cb.I32, cb.I32, cb.I32, cb.P, cb.F32, cb.F32,
                cb.I32, cb.F32, cb.I32, cb.I32, cb.P, cb.P]
     m = cases["main path"]
     all_evals = int(m["counts"].sum()) * m["cfg"].pixels_per_tile

@@ -73,21 +73,28 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
      peak memory, k_max, capacity, candidates, remat and the K1-K3 launches
      a step, beside the card's name and power limit;
  12. multi-device (cudagaussianrenderer_torch.parallel) on phase 4's scene
-     and cameras: (a) render_band of every band of 2, 4 and 8 balanced
-     bands on every camera, the bands' pairs summing to the flat frame's and
-     the summed frame against phase 4's (the image rule); (b) through
-     parallel.launch.spawn, a world-size-1 NCCL group: DistributedRenderer
-     .render of every camera against Renderer.render (byte-equal expected;
-     the image rule enforced), render_batch and a 1x1 render_frames_sharded
-     equal to it, the K1-K4 launches of the sharded frames, the loopback
-     time of the frame's two collectives, and DP_STEPS fit_dp steps on
-     phase 10's COLMAP views against the same steps by hand (every leaf
-     within DIFF_GRAD_RTOL of its largest value); (c) the projected N-card
-     frame for 2, 4 and 8 cards: the largest band's render_band device time
-     (the sum of a trace's records) plus the all-gather of the clip buffer
-     and the frame's all-reduce bounded at NVLink's 450 GB/s, labelled a
-     projection.  Its
-     JSON line ``{"multi_device": ...}`` prints before the per-kernel line.
+     and cameras: (a) every band of 2, 4 and 8 balanced bands: the band's
+     device part (bounds, binning and K4's row offset on the device) eager
+     under the sync debug mode "error", captured as a CUDA graph over a
+     static camera and replayed for every camera, the bands' pairs summing
+     to the flat frame's and the summed frame against phase 4's (the image
+     rule); (b) through parallel.launch.spawn, a world-size-1 NCCL group:
+     ORBIT_PASSES passes of DistributedRenderer.render over the cameras (a
+     key's first frame eager, its second captured with its collectives as
+     one CUDA graph, later ones replayed), every frame byte-equal to
+     Renderer.render, ms/frame by how it ran beside the eager frame loop at
+     the same key, keys, hit rate and memory_reserved, a traced pass of
+     replays (K1-K4 and the collectives once a frame) and its idle share,
+     render_batch and a 1x1 render_frames_sharded equal to it, the K1-K4
+     launches of the eager and captured frames, the loopback time of the
+     frame's two collectives, and DP_STEPS fit_dp steps on phase 10's
+     COLMAP views against the same steps by hand (every leaf within
+     DIFF_GRAD_RTOL of its largest value); (c) the projected N-card frame
+     for 2, 4 and 8 cards: the largest band's render_band device time (the
+     sum of a trace's records) plus the all-gather of the clip buffer and
+     the frame's all-reduce bounded at NVLink's 450 GB/s, labelled a
+     projection.  Its JSON line ``{"multi_device": ...}`` prints before the
+     per-kernel line.
 
 Phases 2 and 5 also hold K1 on the corner cases of tests/torch_port_cases.py
 (flat, then segmented; aligned keys and a view 4 bytes off).
@@ -414,6 +421,11 @@ TRACE_NAMES = {
 # Passes of phases 4 and 7 over the orbit through Renderer.render: a key's
 # first frame runs eager, its second captures the frame, later ones replay.
 ORBIT_PASSES = 3
+# The collectives of a rank's frame in a profiler trace (phase 12): NCCL's
+# kernels, and the device-to-device copies that NCCL runs instead of a
+# kernel for each all-gather of a one-rank group (whose in-place
+# all-reduce runs nothing).
+COLLECTIVE_TRACE_NAMES = {"nccl": r"(?i)nccl", "device copies": r"^memcpy|Memcpy DtoD"}
 
 
 def orbit_passes(r, cams, passes):
@@ -476,10 +488,11 @@ def eager_twins(recs, cams):
     return ms
 
 
-def traced_pass(r, cams, wrappers):
+def traced_pass(r, cams, wrappers, report=None):
     """One more pass of ``r`` over ``cams`` in a profiler trace.  Every frame
     must replay its graph, and every kernel of ``wrappers`` must appear once
-    a frame.  Returns (records of each kernel, device busy ms a frame: the
+    a frame; the records of ``report`` (name -> regular expression) are
+    counted too.  Returns (records of each, device busy ms a frame: the
     sum of the trace's kernel and copy records, host ms a frame)."""
     import re
 
@@ -497,9 +510,10 @@ def traced_pass(r, cams, wrappers):
         wall = (time.perf_counter() - t0) * 1e3 / len(cams)
     require(methods == ["replay"] * len(cams), f"the traced pass did not only replay: {methods}")
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    records = {w: sum(1 for e in device if re.search(TRACE_NAMES[w], e.key)) for w in wrappers}
+    patterns = {**{w: TRACE_NAMES[w] for w in wrappers}, **(report or {})}
+    records = {name: sum(1 for e in device if re.search(p, e.key)) for name, p in patterns.items()}
     busy = sum(e.self_device_time_total for e in device) / 1e3 / len(cams)
-    if any(n != len(cams) for n in records.values()):
+    if any(records[w] != len(cams) for w in wrappers):
         for name in sorted({e.key for e in device}):
             log(f"    traced: {name[:120]}")
         raise AssertionError(f"kernel records in a trace of {len(cams)} replayed frames: {records}")
@@ -1044,11 +1058,15 @@ def multi_device_rank(ws, n_splats, size, dp_capacity):
     """Phase 12(b): the one rank of a world-size-1 NCCL group that
     parallel.launch.spawn starts (gloo on the CPU, to rehearse it small).
     On phase 4's scene (``n_splats``, SH 3, ``size``²) and cameras:
-    DistributedRenderer.render of each camera against Renderer.render (K1-K4
-    counted), render_batch, render_frames_sharded on a 1x1 mesh; the
-    loopback times of the frame's two collectives; then DP_STEPS fit_dp
-    steps on phase 10's COLMAP views (``ws``) against the same steps by hand.
-    Returns the numbers, for phase 12 to check and print."""
+    ORBIT_PASSES passes of DistributedRenderer.render over the cameras (a
+    key's first frame eager under the sync debug mode "error", its second
+    captured as one CUDA graph with its collectives, later ones replayed;
+    K1-K4 counted), every frame against Renderer.render; the eager frame
+    loop at the same key; a traced pass of replays (K1-K4 and the
+    collectives' records); render_batch and render_frames_sharded on a 1x1
+    mesh; the loopback times of the frame's two collectives; then DP_STEPS
+    fit_dp steps on phase 10's COLMAP views (``ws``) against the same steps
+    by hand.  Returns the numbers, for phase 12 to check and print."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1061,12 +1079,14 @@ def multi_device_rank(ws, n_splats, size, dp_capacity):
         stack_cameras,
     )
     from cudagaussianrenderer_torch.parallel.distributed import GATHER_ROWS, _gather_tiled
+    from cudagaussianrenderer_torch.render import camera_array
 
     sys.path.insert(0, str(ROOT / "tests"))
     from torch_port_cases import anisotropic, hand_steps, leaf_rel_diffs
 
     mesh = make_mesh()
     dev = mesh.device
+    cuda = dev.type == "cuda"
     out = {"device": str(dev), "backend": str(dist.get_backend()),
            "world": dist.get_world_size()}
     scene = random_scene(n_splats, seed=0, min_scale=0.002, max_scale=0.053, extent=4.0,
@@ -1076,32 +1096,65 @@ def multi_device_rank(ws, n_splats, size, dp_capacity):
     ref = Renderer(scene, config, device=dev)
     ref.render(cams[0])
     want = [ref.render(c) for c in cams]
+    del ref
     dr = DistributedRenderer(scene, config, mesh=mesh)
     dr.render(cams[0])  # warm-up: sizes the per-rank capacity from its candidates
     counted = (ranges.tile_edges, expand.interleave_rows, expand.emit_slots,
                raster.rasterize_tiles)
     sync(dev)
+    seen_before = set(dr._visited)
     for fn in counted:
         fn.launches = 0
-    t0 = time.perf_counter()
-    got = [dr.render(c) for c in cams]
-    out["ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / len(cams)
+    reserved = [torch.cuda.memory_reserved() if cuda else 0]
+    recs = []
+    for p in range(ORBIT_PASSES):
+        for i, c in enumerate(cams):
+            key = dr._key()
+            t0 = time.perf_counter()
+            img = dr.render(c)
+            ms = (time.perf_counter() - t0) * 1e3
+            recs.append(dict(p=p, i=i, method=dr.last_method, ms=ms, key=key,
+                             equal=bool(np.array_equal(img, want[i]))))
+        reserved.append(torch.cuda.memory_reserved() if cuda else 0)
     out["launches"] = {fn.__name__: fn.launches for fn in counted}
     out["capacity"] = dr.capacity
+    out["frames_equal"] = sum(rec["equal"] for rec in recs)
+    out["frames"] = len(recs)
+    by_method = {m: [rec["ms"] for rec in recs if rec["method"] == m]
+                 for m in ("eager", "capture", "replay")}
+    out["ms"] = {m: float(np.mean(v)) if v else None for m, v in by_method.items()}
+    out["by_method"] = {m: len(v) for m, v in by_method.items()}
+    out["by_frame"] = [[rec["method"][0] + str(rec["p"]), round(rec["ms"], 3)] for rec in recs]
+    keys = [rec["key"] for rec in recs[:2 * len(cams)]]
+    out["keys"] = len(set(keys))
+    out["hit_rate"] = sum(k in seen_before or k in keys[:n] for n, k in enumerate(keys)) / len(keys)
+    out["reserved_gib"] = [b / 2**30 for b in reserved]
 
-    def bad_px(a, b):
-        d = np.abs(a.astype(np.int32) - b.astype(np.int32))
-        return float((d > PIX_TOL).any(axis=-1).mean()), int(d.max())
-
-    out["frames"] = [(bool(np.array_equal(a, b)),) + bad_px(a, b) for a, b in zip(got, want)]
+    # The eager frame loop at the same key: the rank's frame from Python,
+    # the counts and the frame read back, as render does.
+    key, eager_ms = dr._key(), []
+    for c in cams:
+        t0 = time.perf_counter()
+        dr._camera.copy_(torch.from_numpy(camera_array(c.camera_data())))
+        img, counts = dr._frame(key)
+        counts.cpu()
+        img.cpu().numpy()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+    out["eager_loop_ms"] = float(np.mean(eager_ms))
+    if cuda:
+        trace, busy, traced_ms = traced_pass(
+            dr, cams, [fn.__name__ for fn in counted], report=COLLECTIVE_TRACE_NAMES)
+        out.update(trace=trace, busy_ms=busy, traced_ms=traced_ms,
+                   idle_share_replayed=1 - busy / out["ms"]["replay"],
+                   idle_share_eager_loop=1 - busy / out["eager_loop_ms"])
     batch = dr.render_batch(cams)
-    out["batch_equal"] = sum(bool(np.array_equal(batch[i], g)) for i, g in enumerate(got))
+    out["batch_equal"] = sum(bool(np.array_equal(batch[i], w)) for i, w in enumerate(want))
     imgs, _ = render_frames_sharded(dr.scene, stack_cameras(cams), config, dr.capacity,
                                     make_mesh_2d(1, 1))
     imgs = imgs.cpu().numpy()
-    out["mesh_1x1_equal"] = sum(bool(np.array_equal(imgs[i], g)) for i, g in enumerate(got))
+    out["mesh_1x1_equal"] = sum(bool(np.array_equal(imgs[i], w)) for i, w in enumerate(want))
     padded = dr.scene.padded_count
-    del ref, dr, batch, imgs, scene
+    del dr, batch, imgs, scene
 
     # The frame's collectives at their sizes: the all-gather of the packed
     # clip buffer and the all-reduce of a frame; on one rank a loopback.
@@ -1151,14 +1204,16 @@ def multi_device(dev, scene, cams, frames, config, capacity, tmp, card):
     phase 4's; (b) multi_device_rank in a world-size-1 NCCL group; (c) the
     projected N-card frame.  Returns the multi_device JSON object."""
     import dataclasses
+    import functools
 
     import numpy as np
     import torch
 
     from cudagaussianrenderer_torch.parallel import launch, render_band
-    from cudagaussianrenderer_torch.parallel.distributed import GATHER_ROWS
+    from cudagaussianrenderer_torch.parallel.distributed import GATHER_ROWS, render_band_tensors
     from cudagaussianrenderer_torch.render import (
-        _splat_colors, camera_tensors, render_frame, round_capacity,
+        CAMERA_FLOATS, _splat_colors, camera_array, camera_tensors, camera_views, capture_frame,
+        render_frame, round_capacity, run_sync_free,
     )
     from cudagaussianrenderer_torch.ops.projection import project_splats
 
@@ -1169,36 +1224,66 @@ def multi_device(dev, scene, cams, frames, config, capacity, tmp, card):
     result = {"card": card, "scene": f"{scene.count} splats SH {scene.sh_degree} (padded "
               f"{scene.padded_count}), {config.screen_w}x{config.screen_h}, {len(cams)} cameras"}
 
-    # (a) every band of every band count, on every camera.
+    # (a) every band of every band count: the band's device part
+    # (render_band_tensors over a static camera) eager under the sync debug
+    # mode "error" on camera 0, captured as a CUDA graph, and replayed for
+    # every camera (on the CPU, to rehearse it, eager for every camera).
+    cuda = dev.type == "cuda"
     t0 = time.perf_counter()
+    table = torch.from_numpy(np.stack([camera_array(cd) for cd in cds])).to(dev)
+    camera = torch.zeros(CAMERA_FLOATS, dtype=torch.float32, device=dev)
+    views = camera_views(camera)
+    pool = torch.cuda.graph_pool_handle() if cuda else None
     bands = {}
     for n in BAND_COUNTS:
-        worst, bad = None, 0.0
-        for ci, cd in enumerate(cds):
-            total = torch.zeros(frames[ci].shape, dtype=torch.int32, device=dev)
-            pairs = 0
-            for d in range(n):
-                full, aux = render_band(scene, cd, bcfg, capacity, n, d, device=dev)
-                total += full.to(torch.int32)
-                pairs += int(aux["num_pairs"])
-                cand = int(aux["num_candidates"])
-                require(cand <= capacity, f"band {d} of {n} saturated on camera {ci}")
-                if worst is None or cand > worst[0]:
-                    worst = (cand, ci, d, aux["band_lo"], aux["band_hi"])
-            require(pairs == flat_pairs[ci], f"{n} bands of camera {ci} hold {pairs} pairs, the "
-                    f"flat frame {flat_pairs[ci]}")
-            require(int(total.max()) <= 255, f"{n} bands of camera {ci} overlap")
-            img = total.to(torch.uint8).cpu().numpy()
+        totals = [torch.zeros(f.shape, dtype=torch.int32, device=dev) for f in frames]
+        pairs = [0] * len(cams)
+        worst = None
+        for d in range(n):
+            frame = functools.partial(render_band_tensors, scene, views, bcfg, capacity, n, d)
+            camera.copy_(table[0])
+            if cuda:
+                eager, _ = run_sync_free(frame)
+                graph, (image, aux) = capture_frame(frame, dev, pool=pool, checked=True)
+            for ci in range(len(cams)):
+                camera.copy_(table[ci])
+                if cuda:
+                    graph.replay()
+                    full = image
+                else:
+                    full, aux = frame()
+                if ci == 0 and cuda:
+                    require(torch.equal(full, eager), f"band {d} of {n}: the replay differs from "
+                            "the sync-free eager band")
+                totals[ci] += full.to(torch.int32)
+                counts = [int(aux[k]) for k in ("num_pairs", "num_candidates", "band_lo",
+                                                "band_hi")]
+                pairs[ci] += counts[0]
+                require(counts[1] <= capacity, f"band {d} of {n} saturated on camera {ci}")
+                if worst is None or counts[1] > worst[0]:
+                    worst = (counts[1], ci, d, counts[2], counts[3])
+        bad = 0.0
+        for ci in range(len(cams)):
+            require(pairs[ci] == flat_pairs[ci], f"{n} bands of camera {ci} hold {pairs[ci]} "
+                    f"pairs, the flat frame {flat_pairs[ci]}")
+            require(int(totals[ci].max()) <= 255, f"{n} bands of camera {ci} overlap")
+            img = totals[ci].to(torch.uint8).cpu().numpy()
             diff = np.abs(img.astype(np.int32) - frames[ci].astype(np.int32))
             bad = max(bad, float((diff > PIX_TOL).any(axis=-1).mean()))
             require(bad <= BAD_FRAC, f"{n} bands of camera {ci} against Renderer.render: {bad} "
                     f"of pixels off by more than {PIX_TOL}")
         bands[n] = dict(worst_candidates=worst[0], worst_camera=worst[1], worst_band=worst[2],
                         worst_rows=[worst[3], worst[4]], bad_px_max=bad)
-        log(f"  render_band, {n} bands x {len(cams)} cameras: pairs sum to the flat frame's "
-            f"(mean {sum(flat_pairs) / len(cams):.0f}); summed frames vs Renderer.render, bad_px "
-            f"at most {bad:.4f}; largest band: camera {worst[1]} band {worst[2]} rows "
-            f"{worst[3]}-{worst[4]}, {worst[0]} candidates")
+        log(f"  render_band, {n} bands x {len(cams)} cameras "
+            + ("(each band eager under the sync debug mode on camera 0, captured and replayed "
+               "for every camera; camera 0's replay byte-equal to the eager band)" if cuda else
+               "(eager)")
+            + f": pairs sum to the flat frame's (mean {sum(flat_pairs) / len(cams):.0f}); "
+            f"summed frames vs Renderer.render, bad_px at most {bad:.4f}; largest band: camera "
+            f"{worst[1]} band {worst[2]} rows {worst[3]}-{worst[4]}, {worst[0]} candidates")
+    if cuda:
+        del graph, image, aux, eager
+    del totals, pool
     result["render_band"] = {str(n): b for n, b in bands.items()}
     log(f"  (a) in {time.perf_counter() - t0:.1f} s")
 
@@ -1209,21 +1294,34 @@ def multi_device(dev, scene, cams, frames, config, capacity, tmp, card):
         torch.cuda.empty_cache()
     rank = launch.spawn(multi_device_rank, 1, dev.type, str(tmp / "ws"), scene.count,
                         config.screen_w, FIT_CAPACITY)[0]
-    frames_ok = [f for f in rank["frames"] if f[0]]
-    log(f"  world-size-1 group ({rank['backend']}, {rank['device']}): DistributedRenderer "
-        f"{rank['ms_per_frame']:.3f} ms/frame, per-rank capacity {rank['capacity']}, "
-        f"{len(frames_ok)} of {len(cams)} frames byte-equal to Renderer.render, bad_px at most "
-        f"{max(f[1] for f in rank['frames']):.4f} (max diff {max(f[2] for f in rank['frames'])}); "
+    log(f"  world-size-1 group ({rank['backend']}, {rank['device']}) [{card}]: "
+        f"DistributedRenderer.render ms/frame (host clock, readback included): first visits "
+        f"(eager) {rank['ms']['eager']}, second visits (capture) {rank['ms']['capture']}, "
+        f"replays {rank['ms']['replay']} ({rank['by_method']}); the eager frame loop at the "
+        f"same key {rank['eager_loop_ms']:.3f}; by frame (e/c/r and pass, ms) "
+        f"{rank['by_frame']}")
+    log(f"  {rank['frames_equal']} of {rank['frames']} frames byte-equal to Renderer.render; "
         f"render_batch equal {rank['batch_equal']}, 1x1 render_frames_sharded equal "
-        f"{rank['mesh_1x1_equal']}; launches {rank['launches']}")
-    for i, (_, b, m) in enumerate(rank["frames"]):
-        require(b <= BAD_FRAC, f"sharded frame {i}: {b} of pixels off by more than {PIX_TOL}")
+        f"{rank['mesh_1x1_equal']}; per-rank capacity {rank['capacity']}; {rank['keys']} "
+        f"distinct keys over two passes, hit rate {rank['hit_rate']:.3f}; memory_reserved before "
+        f"and after each pass {[round(g, 3) for g in rank['reserved_gib']]} GiB; launches "
+        f"{rank['launches']}")
+    if "trace" in rank:
+        log(f"  traced pass of {len(cams)} replayed frames: records {rank['trace']} (K1-K4 "
+            f"one a frame), device busy {rank['busy_ms']:.3f} ms/frame of {rank['traced_ms']:.3f} "
+            f"traced; idle share replayed {rank['idle_share_replayed']:.3f}, eager loop "
+            f"{rank['idle_share_eager_loop']:.3f}")
+    require(rank["frames_equal"] == rank["frames"],
+            f"{rank['frames'] - rank['frames_equal']} sharded frames differ from Renderer.render")
     require(rank["batch_equal"] == len(cams) and rank["mesh_1x1_equal"] == len(cams),
-            "render_batch or the 1x1 mesh differ from DistributedRenderer.render")
-    for name, count in rank["launches"].items():
-        # (The wrappers count launches of their kernels: none on the CPU.)
-        require(dev.type != "cuda" or count >= len(cams),
-                f"{name} launched {count} times in {len(cams)} sharded frames")
+            "render_batch or the 1x1 mesh differ from Renderer.render")
+    if dev.type == "cuda":
+        require(rank["by_method"]["replay"] >= len(cams) and rank["by_method"]["capture"] >= 1,
+                f"the sharded frames did not capture and replay: {rank['by_method']}")
+        for name, count in rank["launches"].items():
+            # Eager and captured frames call the wrappers; replays call none.
+            require(count >= rank["by_method"]["eager"] + rank["by_method"]["capture"],
+                    f"{name} launched {count} times in the eager and captured sharded frames")
     f = rank["fit_dp"]
     log(f"  fit_dp, {DP_STEPS} steps on {f['views']} COLMAP views at {f['size']} ({f['splats']} "
         f"splats, k_max {f['k_max']}): {rank['fit_dp_s_per_step']:.3f} s/step (by hand "
@@ -1249,7 +1347,7 @@ def multi_device(dev, scene, cams, frames, config, capacity, tmp, card):
     # records over its calls (a lower bound where the trace drops records).
     from cudagaussianrenderer_torch.bench import device_busy_ms
 
-    def busy_ms(fn, reps=10):
+    def busy_ms(fn, reps=4):
         fn()
         ms = device_busy_ms(lambda: [fn() for _ in range(reps)])
         return None if ms is None else ms / reps

@@ -46,19 +46,26 @@ smoke test of this script: ``method`` "eager", the CPU's times, null
 ``graph_frames_equal`` and ``device_busy_ms``.
 
 ``--devices N`` > 1 renders every frame tile-row sharded over N ranks
-(parallel.distributed.render_frames_tilesharded; parallel.launch.spawn
-starts one process a card, NCCL, or with ``--device cpu`` N gloo ranks on
-the CPU), as bench.py's ``--devices``: the scene padded to 4,096 x N
-splats, a per-rank capacity of twice the probed capacity over N on the
-grain, the orbit eager (``method`` "eager") and timed on rank 0's host
-clock between a barrier and a synchronise, best of 3, with rank 0's
-``device_busy_ms`` from a trace of one orbit (its NCCL kernels, waits for
-the other ranks included) and ``collective_ms``, a key of this line only,
-those NCCL kernels' part of it (both null on the CPU); the rest is the
-rank's own work; ``pairs_per_frame`` is the frame's (the bands partition the
-pairs) and ``saturated`` says whether a band's candidates exceeded the
-per-rank capacity.  One line, no stages.  More ranks than cards raise;
-nothing falls back to fewer cards or to the CPU.
+(parallel.launch.spawn starts one process a card, NCCL, or with
+``--device cpu`` N gloo ranks on the CPU), as bench.py's ``--devices``: the
+scene padded to 4,096 x N splats, a per-rank capacity of twice the probed
+capacity over N on the grain.  On the card the headline replays the rank's
+frame (collectives included) captured as one CUDA graph: a
+DistributedRenderer at that capacity, its frames_on_device over a
+[frames, CAMERA_FLOATS] table on the card (``method`` "cuda_graph"; a warm-up
+orbit runs the key's eager first frame and its capture), every graphed
+frame checked against the eager frame of its camera (``graph_frames_equal``; it raises after printing
+unless all are equal); beside it ``eager_ms_per_frame``, the orbit through
+parallel.distributed.render_frames_tilesharded.  Both are timed on rank 0's
+host clock between a barrier and a synchronise, best of 3, with rank 0's
+``device_busy_ms`` from a trace of one graphed orbit (its NCCL kernels,
+waits for the other ranks included) and ``collective_ms``, a key of this
+line only, those NCCL kernels' part of it; the rest is the rank's own
+work.  On the CPU the orbit is eager (``method`` "eager"; both keys null).
+``pairs_per_frame`` is the frame's (the bands partition the pairs) and
+``saturated`` says whether a band's candidates exceeded the per-rank
+capacity.  One line, no stages.  More ranks than cards raise; nothing
+falls back to fewer cards or to the CPU.
 """
 
 from __future__ import annotations
@@ -126,7 +133,9 @@ class GraphedOrbit:
     for each camera of ``cams``.
 
     The kernel wrappers' launch counters count the capture, not the
-    replays: a replay runs on the card without calling any wrapper.
+    replays: a replay runs on the card without calling any wrapper.  A
+    graph holds no reference to the tensors it reads, so the caller keeps
+    ``scene`` alive while it replays.
     """
 
     def __init__(self, scene, cams, config: RenderConfig, capacity: int, dev: torch.device):
@@ -198,10 +207,14 @@ def _headline(args, ms_per_frame, pairs_per_frame, capacity, devices, **extra) -
 
 def _sharded_rank(a: dict) -> dict:
     """One rank of ``--devices N``: the bench's scene and orbit, every frame
-    tile-row sharded over the ranks.  Returns the headline (rank 0's clock)."""
+    tile-row sharded over the ranks; on the card the rank's frame replayed
+    from one CUDA graph (a DistributedRenderer at the bench's capacity),
+    beside the eager orbit.  Returns the headline (rank 0's clock)."""
     import torch.distributed as dist
 
-    from .parallel.distributed import make_mesh, render_frames_tilesharded, stack_cameras
+    from .parallel.distributed import (
+        DistributedRenderer, make_mesh, render_frames_tilesharded, stack_cameras,
+    )
 
     args = argparse.Namespace(**a)
     mesh = make_mesh()
@@ -218,37 +231,70 @@ def _sharded_rank(a: dict) -> dict:
     # between bands (the middle bands carry more pairs than the mean).
     capacity = max(GRAIN, -(-capacity * 2 // world // GRAIN) * GRAIN)
     batch = stack_cameras(cams)
+    cuda = dev.type == "cuda"
 
-    def orbit():
-        return render_frames_tilesharded(scene, batch, config, capacity, mesh)[1]
+    def eager_orbit():
+        images, aux = render_frames_tilesharded(scene, batch, config, capacity, mesh)
+        return torch.stack([aux["num_pairs"], aux["num_candidates"]], 1), images
 
-    orbit()
-    best = float("inf")
-    for _ in range(3):
-        dist.barrier()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        aux = orbit()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        best = min(best, time.perf_counter() - t0)
-    ms_per_frame = best * 1e3 / args.frames
-    busy = nccl = None
-    if dev.type == "cuda":
-        by_name = device_ms_by_name(orbit)
+    def best_of_3(orbit):
+        best = float("inf")
+        for _ in range(3):
+            dist.barrier()
+            if cuda:
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            stats, _ = orbit()
+            if cuda:
+                torch.cuda.synchronize(dev)
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3 / args.frames, stats
+
+    _, eager_frames = eager_orbit()
+    eager_ms, stats = best_of_3(eager_orbit)
+    ms_per_frame, graph_equal, busy, nccl = eager_ms, None, None, None
+    if cuda:
+        r = DistributedRenderer(scene, config, mesh=mesh)
+        r.capacity = capacity
+        table = torch.from_numpy(
+            np.stack([camera_array(c.camera_data()) for c in cams])).to(dev)
+
+        def graphed_orbit():
+            # (num_pairs, num_candidates) a frame, and the frames.
+            images, counts = r.frames_on_device(table)
+            return counts.flip(1), images
+
+        graphed_orbit()  # the key's first frame eager, its second captured
+        _, graph_frames = graphed_orbit()
+        if r.last_method != "replay":
+            raise RuntimeError(f"the sharded orbit did not replay: {r.last_method}")
+        graph_equal = sum(bool(torch.equal(a, b)) for a, b in zip(graph_frames, eager_frames))
+        del graph_frames
+        ms_per_frame, stats = best_of_3(graphed_orbit)
+        by_name = device_ms_by_name(graphed_orbit)
         busy = sum(by_name.values())
         nccl = sum(ms for name, ms in by_name.items() if "nccl" in name.lower())
-    cands = int(aux["num_candidates"].max())
+    del eager_frames
+    stats = stats.cpu()
+    cands = int(stats[:, 1].max())
     if cands > capacity:
         _log(f"pair list saturated: a band's {cands} candidates > per-rank capacity {capacity}")
     return _headline(
-        args, ms_per_frame, int(aux["num_pairs"].double().mean()), capacity, world,
-        method="eager", eager_fps=round(1e3 / ms_per_frame, 2),
-        eager_ms_per_frame=round(ms_per_frame, 3), graph_frames_equal=None,
+        args, ms_per_frame, int(stats[:, 0].double().mean()), capacity, world,
+        method="cuda_graph" if cuda else "eager", eager_fps=round(1e3 / eager_ms, 2),
+        eager_ms_per_frame=round(eager_ms, 3), graph_frames_equal=graph_equal,
         device_busy_ms=None if busy is None else round(busy / args.frames, 3),
         collective_ms=None if nccl is None else round(nccl / args.frames, 3),
         saturated=cands > capacity, device=device_line(dev))
+
+
+def _require_graph_equal(result: dict, frames: int) -> None:
+    """Raise, after the headline has printed, unless every graphed frame
+    equals the eager frame of its camera."""
+    equal = result["graph_frames_equal"]
+    if result["method"] == "cuda_graph" and equal != frames:
+        raise RuntimeError(f"only {equal} of {frames} graphed frames equal the eager frames of "
+                           "their cameras")
 
 
 def main(argv=None) -> dict:
@@ -270,8 +316,9 @@ def main(argv=None) -> dict:
 
         result = spawn(_sharded_rank, args.devices, dev.type, vars(args))[0]
         print(json.dumps(result), flush=True)
-        _log(f"headline ({args.devices} ranks, eager): {result['value']} FPS "
-             f"({result['ms_per_frame']} ms/frame)")
+        _log(f"headline ({args.devices} ranks, {result['method']}): {result['value']} FPS "
+             f"({result['ms_per_frame']} ms/frame); eager {result['eager_fps']} FPS")
+        _require_graph_equal(result, args.frames)
         return result
     cuda = dev.type == "cuda"
 
@@ -337,9 +384,7 @@ def main(argv=None) -> dict:
     print(json.dumps(result), flush=True)
     _log(f"headline ({result['method']}): {result['value']} FPS ({result['ms_per_frame']} "
          f"ms/frame); eager {result['eager_fps']} FPS ({result['eager_ms_per_frame']} ms/frame)")
-    if cuda and graph_equal != args.frames:
-        raise RuntimeError(f"only {graph_equal} of {args.frames} graphed frames equal the eager "
-                           "frames of their cameras")
+    _require_graph_equal(result, args.frames)
     if not args.stages:
         return result
 

@@ -75,12 +75,17 @@ __device__ __forceinline__ float ex2_approx(float x) {
   return y;
 }
 
-template <int kPx, bool kGaussian>
+// kDevOffset: the band's first tile row comes from device memory (a band
+// chosen on the device, as the JAX kernel's SMEM scalar), else from the
+// launch argument; a template argument, so the flat frame's kernel has no
+// extra load.
+template <int kPx, bool kGaussian, bool kDevOffset>
 __global__ void raster_kernel(const uint32_t* __restrict__ pairs,
                               long long stride,
                               const int* __restrict__ starts,
                               const int* __restrict__ counts, int tiles_x,
                               int tile_size, int row_offset,
+                              const int* __restrict__ row_offset_dev,
                               float pix_to_clip_x, float pix_to_clip_y,
                               int chunk, float eps, int background,
                               float4* __restrict__ out) {
@@ -98,7 +103,7 @@ __global__ void raster_kernel(const uint32_t* __restrict__ pairs,
   const int start = starts[tile];
   const int count = counts[tile];
   const int tx = tile % tiles_x;
-  const int ty = tile / tiles_x + row_offset;
+  const int ty = tile / tiles_x + (kDevOffset ? *row_offset_dev : row_offset);
   // The thread's pixels: kPx neighbours on one row of the tile.
   const int pix0 = tid * kPx;
   const int col0 = tx * tile_size + pix0 % tile_size;
@@ -212,25 +217,33 @@ __global__ void raster_kernel(const uint32_t* __restrict__ pairs,
     dst[p] = make_float4(r[p], g[p], b[p], background ? trans[p] : covered);
 }
 
+template <int kPx, bool kGaussian>
+auto pick(bool dev_offset) {
+  return dev_offset ? raster_kernel<kPx, kGaussian, true> : raster_kernel<kPx, kGaussian, false>;
+}
+
 }  // namespace
 
 GSR_EXPORT int gsr_raster(const void* pairs, long long stride,
                           const void* starts, const void* counts,
                           int num_tiles, int tiles_x, int tile_size,
-                          int row_offset, float pix_to_clip_x,
+                          int row_offset, const void* row_offset_dev,
+                          float pix_to_clip_x,
                           float pix_to_clip_y, int chunk, float eps,
                           int gaussian, int background, void* out,
                           void* stream) {
   // Four pixels of one row per thread need a tile edge that 4 divides.
   if (chunk % kBatch) return static_cast<int>(cudaErrorInvalidValue);
   const bool wide = tile_size % 4 == 0;
-  auto kernel = wide ? (gaussian ? raster_kernel<4, true> : raster_kernel<4, false>)
-                     : (gaussian ? raster_kernel<1, true> : raster_kernel<1, false>);
+  const bool dev = row_offset_dev != nullptr;
+  auto kernel = wide ? (gaussian ? pick<4, true>(dev) : pick<4, false>(dev))
+                     : (gaussian ? pick<1, true>(dev) : pick<1, false>(dev));
   kernel<<<num_tiles, tile_size * tile_size / (wide ? 4 : 1), 0,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(pairs), stride,
       static_cast<const int*>(starts), static_cast<const int*>(counts),
-      tiles_x, tile_size, row_offset, pix_to_clip_x, pix_to_clip_y, chunk,
+      tiles_x, tile_size, row_offset, static_cast<const int*>(row_offset_dev),
+      pix_to_clip_x, pix_to_clip_y, chunk,
       eps, background, static_cast<float4*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -56,6 +56,11 @@ def _ceil_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.ceil(x).to(torch.int32)
 
 
+def _bound(b):
+    """A band bound as the clamp takes it: a tensor as it is, else an int."""
+    return b if isinstance(b, torch.Tensor) else int(b)
+
+
 def splat_tile_rects(
     clip_data: SplatClipData, config: RenderConfig, row_band=None
 ) -> TileRects:
@@ -63,11 +68,13 @@ def splat_tile_rects(
 
     ``row_band``, if given, is a (lo, hi) pair of tile-row bounds: rects
     are clamped to the band, so splats outside it emit zero candidates
-    (render_frame_multipass renders one band per pass this way).
+    (render_frame_multipass renders one band per pass this way).  Each
+    bound is an int or a 0-d int32 tensor on the clip data's device (a
+    balanced band chosen on the device, read by no host).
     """
     tx, ty = config.tiles_x, config.tiles_y
     d = clip_data
-    row_lo, row_hi = (0, ty) if row_band is None else (int(row_band[0]), int(row_band[1]))
+    row_lo, row_hi = (0, ty) if row_band is None else (_bound(row_band[0]), _bound(row_band[1]))
     # AABB half-extent of the oriented ellipse (getAABBRect, cu:408-436).
     hx = torch.abs(d.cos_t * d.e0) + torch.abs(d.sin_t * d.e1)
     hy = torch.abs(d.sin_t * d.e0) + torch.abs(d.cos_t * d.e1)

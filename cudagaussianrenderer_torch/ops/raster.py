@@ -73,7 +73,8 @@ def _raster_torch(pair_data, starts, counts, config: RenderConfig, num_tiles, ro
                   stats=None):
     """Plain PyTorch version of K4 (see rasterize_tiles): the same
     per-pixel front-to-back recurrence, vectorized over the tiles still
-    blending, one pair position at a time.  A ``stats`` dict receives
+    blending, one pair position at a time.  ``row_offset`` is an int or a
+    0-d int32 tensor.  A ``stats`` dict receives
     ``pairs_blended``, the pairs blended before the early exits (each
     costs one evaluation per pixel of its tile)."""
     dev = pair_data.device
@@ -146,19 +147,22 @@ def rasterize_tiles(
     config: RenderConfig,
     *,
     num_tiles: int = None,
-    tile_row_offset: int = 0,
+    tile_row_offset=0,
 ) -> torch.Tensor:
     """K4: blend each tile's sorted pair segment.
 
     pair_data: [PAIR_ROWS, W] int32 from pack_pair_data.  starts, counts:
     [num_tiles] int32 from ops.ranges (or a tile-row band slice of them;
     ``tile_row_offset`` then shifts the pixel coordinates to the band's
-    place on screen).  Returns [num_tiles, pixels_per_tile, 4] float32
+    place on screen: an int, or a 0-d int32 tensor on the pairs' device,
+    which the kernel reads from device memory, as the JAX kernel reads its
+    SMEM scalar).  Returns [num_tiles, pixels_per_tile, 4] float32
     (r, g, b, coverage or transmittance).
     Replaces ops/raster.py:_raster_kernel of the JAX package.
     """
     t = num_tiles if num_tiles is not None else config.total_tiles
-    row_offset = int(tile_row_offset or 0)
+    on_device = isinstance(tile_row_offset, torch.Tensor)
+    row_offset = tile_row_offset if on_device else int(tile_row_offset or 0)
     if config.tile_size > MAX_TILE_SIZE:
         raise ValueError(f"tile_size above {MAX_TILE_SIZE} is not supported")
     if cb.dispatch_device(pair_data) == "cpu":
@@ -169,18 +173,21 @@ def rasterize_tiles(
         raise ValueError(f"pair_data must be [{PAIR_ROWS}, W], got {tuple(pair_data.shape)}")
     cb.require(starts, "starts", torch.int32, dev, (t,))
     cb.require(counts, "counts", torch.int32, dev, (t,))
+    if on_device:
+        cb.require(row_offset, "tile_row_offset", torch.int32, dev, ())
     npix = config.pixels_per_tile
     out = torch.empty((t, npix, 4), dtype=torch.float32, device=dev)
     if t == 0:
         return out
     fn = cb.kernel(
         "raster", "gsr_raster",
-        [cb.P, cb.I64, cb.P, cb.P, cb.I32, cb.I32, cb.I32, cb.I32, cb.F32, cb.F32,
+        [cb.P, cb.I64, cb.P, cb.P, cb.I32, cb.I32, cb.I32, cb.I32, cb.P, cb.F32, cb.F32,
          cb.I32, cb.F32, cb.I32, cb.I32, cb.P, cb.P],
     )
     code = fn(
         pair_data.data_ptr(), pair_data.shape[1], starts.data_ptr(), counts.data_ptr(),
-        t, config.tiles_x, config.tile_size, row_offset,
+        t, config.tiles_x, config.tile_size, 0 if on_device else row_offset,
+        row_offset.data_ptr() if on_device else None,
         2.0 / config.screen_w, 2.0 / config.screen_h,
         config.raster_chunk, config.transmittance_eps,
         int(config.falloff == "gaussian"), int(config.background is not None),

@@ -18,11 +18,14 @@ card, and the collectives are explicit:
   * FRAME parallelism: on a 2-D ("frames", "tiles") mesh each frame group
     renders its share of a camera batch, tile-row sharded within it.
 
-Bands are uniform (tiles_y / n rows each), or, with
+Bands are uniform (tiles_y / n rows each, Python ints), or, with
 ``config.balanced_bands``, re-chosen every frame for equal work from the
 gathered clip data (_band_weights, _band_bounds; every rank computes the
-same bounds).  The balanced bounds cost one read of the [n + 1] bounds to
-the host a frame: the binning stage takes the band as Python ints.
+same bounds).  Balanced bounds stay on the device as 0-d tensors, as the
+JAX package's traced bounds: the binning clamps to them, the band's tile
+ranges are gathered from them and K4 reads the band's first row from
+device memory, so no host reads anything between a frame's first kernel
+and its last.
 
 Where the JAX functions return the image sharded by rows, these return the
 whole frame on every rank (what ``np.asarray`` of the JAX result gives):
@@ -35,11 +38,16 @@ device is the group's: the current card under NCCL, the CPU under gloo.
 ``parallel.launch.spawn`` starts the ranks.  ``render_band`` runs one
 rank's band of a balanced frame on one device with no process group at
 all: the single-card check and measurement of this path.
+
+``DistributedRenderer`` keeps the JAX DistributedRenderer's compiled
+frame: on the card each rank replays one CUDA graph of its whole frame,
+collectives included, per capacity key (render.run_graphed).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -56,13 +64,24 @@ from ..ops.projection import SplatClipData, project_splats
 from ..ops.ranges import tile_ranges
 from ..ops.raster import pack_pair_data, rasterize_tiles, tiles_to_image
 from ..ops.sorting import sort_pairs
-from ..render import _splat_colors, camera_tensors, round_capacity, warn_capacity_ceiling
+from ..render import (
+    CAMERA_FLOATS, _splat_colors, camera_array, camera_tensors, camera_views, round_capacity,
+    run_graphed, warn_capacity_ceiling,
+)
 from ..utils.device import resolve_device
 
 # Rows of the packed per-splat buffer that one all-gather moves: the clip
 # fields, three colour rows, the opacity.
 CLIP_ROWS = len(SplatClipData._fields)
 GATHER_ROWS = CLIP_ROWS + 4
+# torch.cuda.graph's capture_error_mode for a rank's frame.  The NCCL
+# process group's watchdog thread queries the events of collectives issued
+# before a capture while this thread captures; under the default "global"
+# mode such a call from another thread can invalidate the capture, under
+# "thread_local" only this thread's calls are checked.  (On H100 cards,
+# torch 2.11 and NCCL 2.28.9, both modes captured and replayed the frame
+# of 1 and 4 ranks alike: the race did not show, and cannot be provoked.)
+SHARDED_CAPTURE_MODE = "thread_local"
 
 
 # ---------------------------------------------------------------------------
@@ -151,11 +170,16 @@ def make_mesh_2d(n_frames: int, n_tiles: int,
 def _gather_tiled(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
     """``jax.lax.all_gather(x, axis, axis=dim, tiled=True)``: every rank's
     ``x`` on the line along ``axis``, concatenated along ``dim`` in rank
-    order.  A 1-rank line runs the collective too, as a copy."""
+    order.  One collective into one buffer (rank-major along dim 0), then
+    a view for ``dim`` 0 or one copy for another; a CUDA graph can capture
+    both.  A 1-rank line runs the collective too, as a copy."""
+    n = mesh.shape[axis]
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
-    dist.all_gather(parts, x, group=mesh.group(axis))
-    return torch.cat(parts, dim)
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=mesh.group(axis))
+    if dim == 0:
+        return out
+    return out.reshape((n,) + tuple(x.shape)).movedim(0, dim).flatten(dim, dim + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -197,15 +221,21 @@ def _band_bounds(weights: torch.Tensor, n_dev: int, max_rows: int) -> torch.Tens
     total = cdf[-1]
 
     def i32(v):
-        return torch.tensor(v, dtype=torch.int32, device=dev)
+        # A fill on the device: no host-to-device copy inside the frame.
+        return torch.full((), v, dtype=torch.int32, device=dev)
+
+    def at(i):
+        # cdf[i] for a 0-d tensor i, as a gather: indexing by a 0-d
+        # tensor reads it to the host.
+        return torch.take(cdf, i.long())
 
     prev = i32(0)
     bounds = [prev]
     for j in range(1, n_dev):
         target = total * (j / n_dev)
         b0 = torch.sum((cdf < target).to(torch.int32))
-        below = torch.where(b0 > 0, cdf[torch.clamp(b0 - 1, min=0)], 0.0)
-        above = cdf[torch.clamp(b0, max=ty - 1)]
+        below = torch.where(b0 > 0, at(torch.clamp(b0 - 1, min=0)), 0.0)
+        above = at(torch.clamp(b0, max=ty - 1))
         b = torch.where(above - target <= target - below, b0 + 1, b0).to(torch.int32)
         lo = torch.maximum(prev + 1, i32(ty - (n_dev - j) * max_rows))
         hi = torch.minimum(prev + max_rows, i32(ty - (n_dev - j)))
@@ -216,14 +246,16 @@ def _band_bounds(weights: torch.Tensor, n_dev: int, max_rows: int) -> torch.Tens
 
 
 def _band_image(clip, colors, opacities, config: RenderConfig, capacity: int,
-                band_lo: int, band_hi: int, max_rows: int):
+                band_lo, band_hi, max_rows: int):
     """Render one contiguous band of tile rows [band_lo, band_hi).
 
-    Candidate rects are clamped to the band (ops.binning.splat_tile_rects),
-    so each (splat, tile) pair is emitted in exactly one band and
-    num_candidates counts only the band's tiles.  The raster buffer holds
-    ``max_rows`` tile rows from band_lo (a balanced band is at most twice
-    the uniform one); its tiles past the band are masked to zero counts.
+    The bounds are ints (uniform bands) or 0-d int32 tensors on the clip
+    data's device (balanced bands, chosen on the device).  Candidate rects
+    are clamped to the band (ops.binning.splat_tile_rects), so each
+    (splat, tile) pair is emitted in exactly one band and num_candidates
+    counts only the band's tiles.  The raster buffer holds ``max_rows``
+    tile rows from band_lo (a balanced band is at most twice the uniform
+    one); its tiles past the band are masked to zero counts.
     Returns (band image [max_rows * tile_size, W, 4] uint8, the pairs).
     """
     band_tiles = max_rows * config.tiles_x
@@ -231,12 +263,14 @@ def _band_image(clip, colors, opacities, config: RenderConfig, capacity: int,
                              row_band=(band_lo, band_hi))
     keys, _, attrs = sort_pairs(pairs, stable=config.stable_sort)
     starts, counts = tile_ranges(keys, config)
-    # Padded so that the buffer's slice stays in range for any band.
-    t0 = band_lo * config.tiles_x
+    # The buffer's tiles gathered from band_lo on, the JAX dynamic_slice;
+    # padded so that the gather stays in range for any band.
     pad = starts.new_zeros(band_tiles)
-    starts_b = torch.cat([starts, pad])[t0:t0 + band_tiles]
-    counts_b = torch.cat([counts, pad])[t0:t0 + band_tiles]
-    counts_b[(band_hi - band_lo) * config.tiles_x:] = 0
+    buffer = torch.arange(band_tiles, device=starts.device)
+    index = band_lo * config.tiles_x + buffer
+    starts_b = torch.cat([starts, pad]).index_select(0, index)
+    counts_b = torch.where(buffer < (band_hi - band_lo) * config.tiles_x,
+                           torch.cat([counts, pad]).index_select(0, index), 0)
     tiles = rasterize_tiles(
         pack_pair_data(attrs, config.raster_chunk), starts_b, counts_b, config,
         num_tiles=band_tiles, tile_row_offset=band_lo,
@@ -244,16 +278,19 @@ def _band_image(clip, colors, opacities, config: RenderConfig, capacity: int,
     return tiles_to_image(tiles, config), pairs
 
 
-def _place_band(img: torch.Tensor, band_lo: int, band_hi: int, config: RenderConfig):
+def _place_band(img: torch.Tensor, band_lo, band_hi, config: RenderConfig):
     """The band's rows at their place in a zeroed full-height frame; the
-    buffer's rows past the band are dropped.  Bands partition the tile
-    rows, so the element-wise sum of every band's placed frame is the
-    image."""
+    buffer's rows past the band are zeroed.  The JAX pad plus
+    dynamic_update_slice: rows go to a frame padded by the buffer's height
+    at a device index, so the bounds may be 0-d tensors.  Bands partition
+    the tile rows, so the element-wise sum of every band's placed frame is
+    the image."""
     ts = config.tile_size
-    full = img.new_zeros((config.screen_h,) + tuple(img.shape[1:]))
-    rows = (band_hi - band_lo) * ts
-    full[band_lo * ts:band_lo * ts + rows] = img[:rows]
-    return full
+    rows = torch.arange(img.shape[0], device=img.device)
+    band = torch.where((rows < (band_hi - band_lo) * ts)[:, None, None], img, 0)
+    full = img.new_zeros((config.screen_h + img.shape[0],) + tuple(img.shape[1:]))
+    full.index_copy_(0, band_lo * ts + rows, band)
+    return full[:config.screen_h]
 
 
 def _balanced_rows(config: RenderConfig, n_dev: int) -> int:
@@ -272,17 +309,28 @@ def render_band(scene: GaussianScene, camera_data: dict, config: RenderConfig, c
     the balanced frame exactly.
 
     Returns (full-height frame [H, W, 4] uint8 on ``device``, aux with the
-    band's ``num_candidates`` and ``num_pairs`` (0-d tensors) and its
-    ``band_lo``, ``band_hi`` (ints))."""
+    band's ``num_candidates``, ``num_pairs`` and its ``band_lo``,
+    ``band_hi``: 0-d int32 tensors, as the JAX function returns arrays).
+
+    The host's part: the camera goes to the device here, then
+    render_band_tensors runs the band."""
     d = resolve_device(device)
-    capacity = round_capacity(capacity, d)
-    scene = scene.to(d)
-    cam = camera_tensors(camera_data, d)
+    return render_band_tensors(scene.to(d), camera_tensors(camera_data, d), config, capacity,
+                               n_dev, dev)
+
+
+def render_band_tensors(scene: GaussianScene, cam: Dict[str, torch.Tensor],
+                        config: RenderConfig, capacity: int, n_dev: int, dev: int):
+    """The device part of render_band, on the device of ``scene``, the
+    camera as the tensors of render.camera_tensors or camera_views.  It
+    copies nothing from the host and reads nothing back, so a CUDA graph
+    can capture it."""
+    capacity = round_capacity(capacity, scene.means.device)
     colors = _splat_colors(scene, cam)
     clip = project_splats(scene.means, scene.scales, scene.quats, cam, config,
                           opacities=scene.opacities)
     max_rows = _balanced_rows(config, n_dev)
-    bounds = _band_bounds(_band_weights(clip, config), n_dev, max_rows).tolist()
+    bounds = _band_bounds(_band_weights(clip, config), n_dev, max_rows)
     band_lo, band_hi = bounds[dev], bounds[dev + 1]
     img, pairs = _band_image(clip, colors, scene.opacities, config, capacity, band_lo, band_hi,
                              max_rows)
@@ -323,7 +371,8 @@ def _render_shard(shard: GaussianScene, cam: Dict[str, torch.Tensor], config: Re
     of the packed clip data, stages C-F on its band, the frame's
     reassembly.  Returns (the whole frame [H, W, 4] uint8, aux with
     ``num_candidates``, the max over the ranks, and ``num_pairs``, the sum:
-    0-d int32 tensors)."""
+    0-d int32 tensors).  No host read and no host-to-device copy between
+    its first kernel and its last: a CUDA graph can capture it."""
     n_dev, idx = mesh.shape[axis], mesh.index(axis)
     colors = _splat_colors(shard, cam)
     clip = project_splats(shard.means, shard.scales, shard.quats, cam, config,
@@ -337,9 +386,9 @@ def _render_shard(shard: GaussianScene, cam: Dict[str, torch.Tensor], config: Re
     balanced = config.balanced_bands and n_dev > 1
     if balanced:
         # Equal-work bands from the gathered (identical) clip data: every
-        # rank computes the same bounds.
+        # rank computes the same bounds, on its device.
         max_rows = _balanced_rows(config, n_dev)
-        bounds = _band_bounds(_band_weights(clip, config), n_dev, max_rows).tolist()
+        bounds = _band_bounds(_band_weights(clip, config), n_dev, max_rows)
         band_lo, band_hi = bounds[idx], bounds[idx + 1]
     else:
         max_rows = rows_per_dev
@@ -415,11 +464,13 @@ def _batch_size(camera_batch: dict) -> int:
 
 def _frames(shard, camera_batch, frames, config, capacity, mesh, axis):
     """Frames ``frames`` of a camera batch, in sequence, tile-row sharded
-    over ``axis``: ([F, H, W, 4] uint8, aux of [F] int32 tensors)."""
+    over ``axis``: ([F, H, W, 4] uint8, aux of [F] int32 tensors).  The
+    cameras go to the device once, as one [F, CAMERA_FLOATS] table;
+    nothing is read back."""
+    rows = [camera_array({k: np.asarray(v)[i] for k, v in camera_batch.items()}) for i in frames]
     images, cands, pairs = [], [], []
-    for i in frames:
-        cam = camera_tensors({k: np.asarray(v)[i] for k, v in camera_batch.items()}, mesh.device)
-        image, aux = _render_shard(shard, cam, config, capacity, mesh, axis)
+    for cam in torch.from_numpy(np.stack(rows)).to(mesh.device):
+        image, aux = _render_shard(shard, camera_views(cam), config, capacity, mesh, axis)
         images.append(image)
         cands.append(aux["num_candidates"])
         pairs.append(aux["num_pairs"])
@@ -475,13 +526,30 @@ class DistributedRenderer:
     capacity driven by the largest band's candidate count, and the
     reference's saturation handling (an overflowing frame renders
     truncated; the next frame grows).  Every rank calls ``render`` with
-    the same camera and gets the whole frame."""
+    the same camera and gets the whole frame.
+
+    The rank's frame (_render_shard over its shard) reads the camera from
+    a static tensor, allocated once and refilled in place.  On the card it
+    runs from a cache keyed like the JAX DistributedRenderer's jit cache
+    (``_get_fn``'s ``(capacity, batched)``) without ``batched``, since a
+    batch replays the one-frame graph once a camera: a key's first frame
+    runs eagerly under render.run_sync_free, its second captures the frame,
+    collectives included, as a CUDA graph, and later ones replay it
+    (render.run_graphed).  The key comes from the largest band's candidate
+    count, which every rank reads back, so every rank captures and replays
+    the same key on the same frame, as its collectives require.  A failed
+    capture raises.  On the CPU (gloo) the same frame runs eagerly over the
+    same static tensor.
+
+    A graph holds no reference to the tensors it reads: the renderer keeps
+    its shard, and a new scene or config takes a new DistributedRenderer."""
 
     MAX_CAPACITY = _KERNEL_MAX_CAPACITY
 
     def __init__(self, scene: GaussianScene, config: RenderConfig = RenderConfig(), *,
                  mesh: Optional[Mesh] = None, n_devices: Optional[int] = None):
         self.mesh = mesh if mesh is not None else make_mesh(n_devices)
+        self.device = self.mesh.device
         self.axes = self.mesh.axis_names
         self.tile_axis = self.axes[-1]
         self.n_tile_devices = self.mesh.shape[self.tile_axis]
@@ -494,10 +562,22 @@ class DistributedRenderer:
         # Per-rank capacity: the global estimate split across bands, clamped
         # to the emit kernel's exact-f32 limit.
         self.capacity = max(1 << 14, config.tile_capacity(self.scene.count) // self.n_tile_devices)
-        self.capacity = min(round_capacity(self.capacity, self.mesh.device), self.MAX_CAPACITY)
+        self.capacity = min(round_capacity(self.capacity, self.device), self.MAX_CAPACITY)
         self.saturated = False
         self.adaptive = config.capacity is None
         self.frame_count = 0
+        # The frame's static camera, outside every graph's memory pool.
+        self._camera = torch.zeros(CAMERA_FLOATS, dtype=torch.float32, device=self.device)
+        self._camera_views = camera_views(self._camera)
+        # key -> (graph, (image, counts)); keys whose eager first frame ran;
+        # one memory pool for the graphs (render.Renderer's argument holds:
+        # replays run one at a time on one stream, and each replay's
+        # outputs are copied out before the next).
+        self._graphs: Dict[object, tuple] = {}
+        self._visited: set = set()
+        self._pool = None
+        # How the last frame ran: "eager", "capture" or "replay".
+        self.last_method: Optional[str] = None
 
     def _bucket(self, candidates: int) -> int:
         """Per-rank bucket: 20% headroom, 32Ki grain (the per-rank counts
@@ -521,31 +601,74 @@ class DistributedRenderer:
             self.capacity = min(self.capacity * 2, self.MAX_CAPACITY)
             self.saturated = False
 
+    def _key(self) -> int:
+        """The graph cache's key: the per-rank capacity."""
+        return round_capacity(self.capacity, self.device)
+
+    def _frame(self, key):
+        """The rank's frame at ``key`` over the static camera: (the whole u8
+        frame, int32 counts [num_candidates (max over ranks), num_pairs])."""
+        image, aux = _render_shard(self.shard, self._camera_views, self.config, key, self.mesh,
+                                   self.tile_axis)
+        return image, torch.stack([aux["num_candidates"], aux["num_pairs"]])
+
+    def _run(self, key):
+        return run_graphed(self, key, functools.partial(self._frame, key),
+                           error_mode=SHARDED_CAPTURE_MODE)
+
     def render(self, camera: Camera, *, check_saturation: bool = True) -> np.ndarray:
         """The whole [H, W, 4] uint8 frame as a NumPy array, on every rank."""
         self._grow_if_saturated()
-        image, aux = _render_shard(
-            self.shard, camera_tensors(camera.camera_data(), self.mesh.device), self.config,
-            round_capacity(self.capacity, self.mesh.device), self.mesh, self.tile_axis)
+        self._camera.copy_(torch.from_numpy(camera_array(camera.camera_data())))
+        image, counts = self._run(self._key())
         self.frame_count += 1
         if check_saturation:
-            self._update_capacity(int(aux["num_candidates"]))
+            self._update_capacity(int(counts[0]))
         return image.cpu().numpy()
 
     def render_batch(self, cameras: List[Camera], *, check_saturation: bool = True) -> np.ndarray:
         """[B, H, W, 4] uint8 frames: frame-parallel on a 2-D mesh
-        (make_mesh_2d), in sequence on a 1-axis mesh; one readback of the
-        counts for the batch."""
+        (make_mesh_2d; frame group f renders the f-th contiguous share of
+        the batch, and one all-gather over the frame axis collects them
+        after the frames), in sequence on a 1-axis mesh.  The cameras go to
+        the device once (frames_on_device); one readback of the frames and
+        one of the counts."""
         self._grow_if_saturated()
-        cams = stack_cameras(cameras)
+        mine = range(len(cameras))
         if len(self.axes) == 2:
-            images, aux = _frames_by_group(self.shard, cams, self.config, self.capacity,
-                                           self.mesh, self.axes[0], self.tile_axis)
-        else:
-            images, aux = _frames(self.shard, cams, range(len(cameras)), self.config,
-                                  round_capacity(self.capacity, self.mesh.device), self.mesh,
-                                  self.tile_axis)
+            if len(cameras) % self.n_frame_devices != 0:
+                raise ValueError(f"camera batch ({len(cameras)}) must be divisible by the "
+                                 f"frame-axis size ({self.n_frame_devices})")
+            per = len(cameras) // self.n_frame_devices
+            f = self.mesh.index(self.axes[0])
+            mine = range(f * per, (f + 1) * per)
+        table = torch.from_numpy(
+            np.stack([camera_array(cameras[i].camera_data()) for i in mine])).to(self.device)
+        images, counts = self.frames_on_device(table)
+        if len(self.axes) == 2:
+            images = _gather_tiled(images, self.mesh, self.axes[0], 0)
+            counts = _gather_tiled(counts, self.mesh, self.axes[0], 0)
         self.frame_count += len(cameras)
         if check_saturation:
-            self._update_capacity(int(aux["num_candidates"].max()))
+            self._update_capacity(int(counts[:, 0].max()))
         return images.cpu().numpy()
+
+    def frames_on_device(self, table: torch.Tensor):
+        """The device part of render_batch: for each camera of ``table``
+        ([F, CAMERA_FLOATS] float32 rows of render.camera_array, on the
+        rank's device) a device-to-device refill of the static camera and
+        the rank's frame at the current key, copied into one output.
+        Returns ([F, H, W, 4] uint8 frames, [F, 2] int32 counts:
+        num_candidates, num_pairs), on the device; nothing waits for the
+        card.  The capacity does not change within the call."""
+        cfg = self.config
+        images = torch.empty((table.shape[0], cfg.screen_h, cfg.screen_w, 4), dtype=torch.uint8,
+                             device=self.device)
+        counts = torch.empty((table.shape[0], 2), dtype=torch.int32, device=self.device)
+        key = self._key()
+        for j, cam in enumerate(table):
+            self._camera.copy_(cam)
+            image, c = self._run(key)
+            images[j].copy_(image)
+            counts[j].copy_(c)
+        return images, counts

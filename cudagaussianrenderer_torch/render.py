@@ -344,13 +344,17 @@ def run_sync_free(frame):
         torch.cuda.set_sync_debug_mode(mode)
 
 
-def capture_frame(frame, device, *, pool=None, checked: bool = False):
+def capture_frame(frame, device, *, pool=None, checked: bool = False,
+                  error_mode: str = "global"):
     """Capture ``frame()`` as a CUDA graph on ``device``, by PyTorch's
     recipe: (1) one eager frame under run_sync_free, unless ``checked``
     says the caller has run one; (2) a warm-up on a side stream, so that
     every lazy initialisation (the kernels' libraries, their cached device
     attributes, the sort's workspace) happens before the capture; (3) the
-    capture, into the memory pool ``pool`` (None: a pool of its own).
+    capture, into the memory pool ``pool`` (None: a pool of its own), with
+    ``torch.cuda.graph``'s ``capture_error_mode`` ``error_mode``: "global"
+    refuses a CUDA call that is unsafe during a capture from any thread of
+    the process, "thread_local" only from this one.
 
     Returns (the graph, the captured call's outputs).  The outputs are
     static: each replay writes them anew.  A failed capture raises."""
@@ -362,9 +366,38 @@ def capture_frame(frame, device, *, pool=None, checked: bool = False):
         frame()
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool):
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode=error_mode):
         outputs = frame()
     return graph, outputs
+
+
+def run_graphed(owner, key, frame, error_mode: str = "global"):
+    """``frame()``, the frame at ``key`` of a renderer ``owner`` that keeps a
+    graph cache (``device``, ``_graphs``: key -> (graph, outputs),
+    ``_visited``, ``_pool``, ``last_method``): eager on the CPU; on the
+    card eager under run_sync_free on the key's first visit, captured by
+    capture_frame (with ``error_mode``) into the owner's one pool and
+    replayed on its second, replayed after that.  Returns the frame's
+    outputs, static ones when replayed."""
+    if owner.device.type != "cuda":
+        owner.last_method = "eager"
+        return frame()
+    if key in owner._graphs:
+        graph, outputs = owner._graphs[key]
+        owner.last_method = "replay"
+    elif key not in owner._visited:
+        owner._visited.add(key)
+        owner.last_method = "eager"
+        return run_sync_free(frame)
+    else:
+        if owner._pool is None:
+            owner._pool = torch.cuda.graph_pool_handle()
+        graph, outputs = capture_frame(frame, owner.device, pool=owner._pool, checked=True,
+                                       error_mode=error_mode)
+        owner._graphs[key] = (graph, outputs)
+        owner.last_method = "capture"
+    graph.replay()
+    return outputs
 
 
 def render_frame_multipass(
@@ -497,7 +530,7 @@ class Renderer:
         self._camera_views = camera_views(self._camera)
         self._band_rows = (torch.zeros(self.n_bands + 1, dtype=torch.int32, device=self.device)
                            if self.banded else None)
-        # key -> (graph, image, counts); keys whose eager first frame ran.
+        # key -> (graph, (image, counts)); keys whose eager first frame ran.
         # All graphs share one memory pool.  That is safe because replays
         # run one at a time on one stream, each replay's outputs are copied
         # to the host before the next replay, and the static inputs live
@@ -606,26 +639,7 @@ class Renderer:
     def _run(self, key):
         """The frame at ``key``: eager on the CPU; on the card eager on the
         key's first visit, captured on its second, replayed after that."""
-        frame = functools.partial(self._frame, key)
-        if self.device.type != "cuda":
-            self.last_method = "eager"
-            return frame()
-        if key in self._graphs:
-            graph, image, counts = self._graphs[key]
-            self.last_method = "replay"
-        elif key not in self._visited:
-            self._visited.add(key)
-            self.last_method = "eager"
-            return run_sync_free(frame)
-        else:
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            graph, (image, counts) = capture_frame(
-                frame, self.device, pool=self._pool, checked=True)
-            self._graphs[key] = (graph, image, counts)
-            self.last_method = "capture"
-        graph.replay()
-        return image, counts
+        return run_graphed(self, key, functools.partial(self._frame, key))
 
     def _update_flat(self, candidates: int) -> None:
         """The capacity for the next frame, from this frame's candidates."""

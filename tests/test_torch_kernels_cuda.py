@@ -24,7 +24,8 @@ from cudagaussianrenderer_torch.render import (
 )
 
 from torch_port_cases import (
-    card_fit_dp_case, card_sharded_case, mesh_frames_case,
+    card_failed_sharded_capture_case, card_fit_dp_case, card_graphed_renderer_case,
+    card_sharded_case, mesh_frames_case,
     COMPACT_CASES, COMPACT_CG, EDGE_CORNER_CASES, compact_counts, cull_run, edge_corner_keys, widen,
 )
 
@@ -270,6 +271,36 @@ def test_raster_matches_plain(dev, name, cfg_kw, row_offset, scene_args, capacit
     assert int(b[..., :3].max()) > 0
     if name.startswith("deep-list"):
         assert stats["pairs_blended"] < int(counts[sl].sum())
+
+
+@pytest.mark.parametrize("row_offset", [0, 3])
+def test_k4_row_offset_pointer_matches_int(dev, row_offset):
+    """K4 with the band's first tile row as a 0-d int32 tensor on the card,
+    which the kernel reads from device memory, equal bit for bit to the
+    same offset as a launch argument, and against its plain version by
+    K4_LSB_BOUND; a background makes every pixel's transmittance show."""
+    cfg = pt.RenderConfig(screen_size=128, background=(0.2, 0.4, 0.6))
+    scene = pt.random_scene(500, seed=2, device=dev).pad_to_multiple(256)
+    cam = pt.Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max)
+    _, attrs, starts, counts = _frame_pairs(scene, camera_tensors(cam.camera_data(), dev),
+                                            cfg, 8192)
+    rows = 3
+    sl = slice(row_offset * cfg.tiles_x, (row_offset + rows) * cfg.tiles_x)
+    args = (raster.pack_pair_data(attrs, cfg.raster_chunk), starts[sl].contiguous(),
+            counts[sl].contiguous(), cfg)
+    t = rows * cfg.tiles_x
+    offset = torch.tensor(row_offset, dtype=torch.int32, device=dev)
+    before = raster.rasterize_tiles.launches
+    got = raster.rasterize_tiles(*args, num_tiles=t, tile_row_offset=offset)
+    want = raster.rasterize_tiles(*args, num_tiles=t, tile_row_offset=row_offset)
+    assert raster.rasterize_tiles.launches == before + 2
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    plain = raster._raster_torch(*args, t, offset)
+    a = raster.tiles_to_image(got, cfg).int()
+    b = raster.tiles_to_image(plain, cfg).int()
+    assert int((a - b).abs().max()) <= K4_LSB_BOUND and int(b[..., :3].max()) > 0
+    with pytest.raises(ValueError):
+        raster.rasterize_tiles(*args, num_tiles=t, tile_row_offset=offset.long())
 
 
 def test_wrappers_reject_bad_arguments(dev):
@@ -684,6 +715,60 @@ def test_sharded_frames_across_cards(dev):
             assert a.tobytes() == b.tobytes()
 
 
+def test_balanced_render_band_is_sync_free_and_graphs(dev):
+    """Every band of 4 balanced bands (3000 splats, SH 3, 256x256): the
+    band's device part (render_band_tensors: bounds, binning, K4's row
+    offset on the device) runs under the sync debug mode "error", is
+    captured as a CUDA graph over a static camera and replayed for two
+    cameras, each replay byte-equal to render_band with the same counts
+    and bounds."""
+    from cudagaussianrenderer_torch.parallel import render_band
+    from cudagaussianrenderer_torch.parallel.distributed import render_band_tensors
+    from cudagaussianrenderer_torch.render import (
+        CAMERA_FLOATS, camera_array, camera_views, capture_frame, run_sync_free,
+    )
+
+    scene = pt.random_scene(3000, seed=0, min_scale=0.002, max_scale=0.053, sh_degree=3,
+                            device=dev).pad_to_multiple(4096)
+    cfg = pt.RenderConfig(screen_size=256, balanced_bands=True)
+    cams = pt.orbit_cameras(scene.bounds_min, scene.bounds_max, 2)
+    table = torch.from_numpy(np.stack([camera_array(c.camera_data()) for c in cams])).to(dev)
+    camera = torch.zeros(CAMERA_FLOATS, dtype=torch.float32, device=dev)
+    views = camera_views(camera)
+    pool = torch.cuda.graph_pool_handle()
+    for d in range(4):
+        def frame():
+            return render_band_tensors(scene, views, cfg, 1 << 17, 4, d)
+
+        camera.copy_(table[0])
+        eager, _ = run_sync_free(frame)
+        graph, (image, aux) = capture_frame(frame, dev, pool=pool, checked=True)
+        for i, c in enumerate(cams):
+            camera.copy_(table[i])
+            graph.replay()
+            want, waux = render_band(scene, c.camera_data(), cfg, 1 << 17, 4, d, device=dev)
+            assert torch.equal(image, want), (d, i)
+            assert {k: int(v) for k, v in aux.items()} == {k: int(v) for k, v in waux.items()}
+            assert int(aux["band_lo"]) < int(aux["band_hi"])
+        assert torch.equal(eager, render_band(scene, cams[0].camera_data(), cfg, 1 << 17, 4, d,
+                                              device=dev)[0])
+
+
+def test_graphed_distributed_renderer_equals_eager(dev):
+    """A world-size-1 NCCL group's DistributedRenderer at keys A, B, A, B,
+    A, A: a key's first frame eager, its second captured (collectives
+    included), later ones replayed; every frame byte-equal to
+    Renderer.render of its camera, and render_batch too."""
+    from cudagaussianrenderer_torch.parallel import launch
+
+    methods, frames, want, batch, keys = launch.spawn(card_graphed_renderer_case, 1, "cuda")[0]
+    assert methods == ["eager", "eager", "capture", "capture", "replay", "replay"]
+    assert len(keys) == 2
+    for i, (got, w) in enumerate(zip(frames, want)):
+        np.testing.assert_array_equal(got, w, err_msg=f"frame {i} ({methods[i]})")
+    np.testing.assert_array_equal(batch, np.stack(want[:5]))
+
+
 def test_failed_capture_raises(dev):
     """A frame that waits for the host cannot be captured: the capture
     raises, the renderer keeps no graph and does not fall back to the
@@ -711,3 +796,14 @@ def test_failed_capture_raises(dev):
     assert r._graphs == {}
     with pytest.raises(RuntimeError):
         capture_frame(lambda: syncing(r._key()), dev)
+
+
+def test_failed_sharded_capture_raises(dev):
+    """A rank's frame that waits for the host cannot be captured: in a
+    world-size-1 NCCL group the capture raises on the rank, no graph is
+    kept, and spawn returns.  Last in this file, beside
+    test_failed_capture_raises."""
+    from cudagaussianrenderer_torch.parallel import launch
+
+    raised, keys, method = launch.spawn(card_failed_sharded_capture_case, 1, "cuda")[0]
+    assert raised and keys == [] and method == "eager"

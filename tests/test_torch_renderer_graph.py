@@ -136,8 +136,8 @@ def test_cache_visits_eager_then_capture_then_replays(cfg_kw, monkeypatch):
         checked.append(frame.args)
         return frame()
 
-    def capture_frame(frame, device, *, pool=None, checked=False):
-        captures.append((frame.args, pool, checked))
+    def capture_frame(frame, device, *, pool=None, checked=False, error_mode="global"):
+        captures.append((frame.args, pool, checked, error_mode))
         graph = StandInGraph(frame)
         return graph, graph.outputs
 
@@ -162,7 +162,7 @@ def test_cache_visits_eager_then_capture_then_replays(cfg_kw, monkeypatch):
         np.testing.assert_array_equal(got, want.numpy(), err_msg=f"frame {i}")
     assert methods == ["eager", "eager", "capture", "capture", "replay"]
     assert checked == [(a,), (b,)]
-    assert captures == [((a,), "pool", True), ((b,), "pool", True)]
+    assert captures == [((a,), "pool", True, "global"), ((b,), "pool", True, "global")]
     assert set(r._graphs) == {a, b}
 
 

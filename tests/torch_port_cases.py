@@ -418,10 +418,15 @@ def mesh_frames_case(n):
     device (render_frame_multipass with a pass a rank; the sum of
     render_band), and against render_frame by the multi-device rule; then
     one data-parallel Adam step.  Returns (checks: name -> bool, the
-    frames as NumPy, the stepped parameters as NumPy)."""
+    frames as NumPy, the stepped parameters as NumPy).  On the card the
+    balanced frame is also held through a DistributedRenderer's graph
+    (eager, capture, replay of one key), each frame equal to the eager
+    one."""
     from cudagaussianrenderer_torch import Camera, RenderConfig, diff, render_frame
     from cudagaussianrenderer_torch import render_frame_multipass
-    from cudagaussianrenderer_torch.parallel import make_mesh, render_band, render_frame_sharded
+    from cudagaussianrenderer_torch.parallel import (
+        DistributedRenderer, make_mesh, render_band, render_frame_sharded,
+    )
     from cudagaussianrenderer_torch.parallel.train import make_train_step_dp, view_batch
 
     mesh = make_mesh()
@@ -447,6 +452,18 @@ def mesh_frames_case(n):
         uniform_close=close(uniform, flat), balanced_close=close(balanced, flat),
         balanced_beats_uniform=int(baux["num_candidates"]) < int(uaux["num_candidates"]),
     )
+    # The graphed frame: a DistributedRenderer's key visited three times
+    # (eager, capture, replay), each frame equal to the eager sharded frame.
+    r = DistributedRenderer(scene, bcfg, mesh=mesh)
+    r.capacity = PAR_SHARD_CAP
+    methods = []
+    for _ in range(3):
+        got = r.render(Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max),
+                       check_saturation=False)
+        methods.append(r.last_method)
+        checks[f"graphed_{r.last_method}_is_eager"] = bool(np.array_equal(got,
+                                                                         balanced.cpu().numpy()))
+    checks["graphed_methods"] = methods == ["eager", "capture", "replay"]
     _, cams, targets = rendered_views(48, 3, 32, n)
     params = anisotropic(diff.random_init(24, scene.bounds_min, scene.bounds_max, seed=2,
                                           device=dev))
@@ -545,3 +562,151 @@ def leaf_rel_diffs(got, want):
 
     return [float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
             for a, b in zip(diff.tree_leaves(got), diff.tree_leaves(want))]
+
+
+# ---------------------------------------------------------------------------
+# The sharded frame's graph cache (tests/test_torch_sharded_graph.py)
+# ---------------------------------------------------------------------------
+
+# The selfcheck's scale: 128x128, 350 splats, SH degree 3.
+GRAPH_SIZE, GRAPH_SPLATS, GRAPH_SEED = 128, 350, 4
+# The capacity key cases: (name, tile-axis ranks, balanced bands, adaptive,
+# per-rank capacity to start from).  The start is below the largest band's
+# candidates, so the adaptive bucket and the fixed capacity's doubling each
+# walk to a second key.
+SHARDED_KEY_CASES = (("adaptive-balanced", 2, True, True, 1024),
+             ("fixed-uniform", 4, False, False, 512))
+# Orbit cameras of the frame cases, and the order a renderer visits them.
+GRAPH_CAMERAS = 3
+REVISITS = (0, 1, 2, 1, 0)
+
+
+def graph_scene(device="cpu"):
+    from cudagaussianrenderer_torch import random_scene
+
+    return random_scene(GRAPH_SPLATS, seed=GRAPH_SEED, sh_degree=3, device=device)
+
+
+def key_sequence(mesh, balanced, adaptive, start, cameras):
+    """A DistributedRenderer of graph_scene at ``start`` capacity over
+    ``cameras``: the key each frame ran at and the capacity after it."""
+    from cudagaussianrenderer_torch import RenderConfig
+    from cudagaussianrenderer_torch.parallel import distributed as pd
+
+    cfg = RenderConfig(screen_size=GRAPH_SIZE, balanced_bands=balanced,
+                       capacity=None if adaptive else start)
+    r = pd.DistributedRenderer(graph_scene(), cfg, mesh=mesh)
+    r.capacity = start
+    keys, run = [], r._run
+
+    def counted(key):
+        keys.append(key)
+        return run(key)
+
+    r._run = counted
+    after = []
+    for cam in cameras:
+        r.render(cam)
+        after.append(r.capacity)
+    return keys, after
+
+
+def renderer_frames(mesh, balanced):
+    """REVISITS through DistributedRenderer.render and render_batch over
+    its refilled static camera, beside render_frames_tilesharded of the
+    same cameras at the same capacity (every frame of the batch on the
+    tile axis), all as NumPy."""
+    from cudagaussianrenderer_torch import RenderConfig, orbit_cameras
+    from cudagaussianrenderer_torch.parallel import distributed as pd
+
+    cfg = RenderConfig(screen_size=GRAPH_SIZE, balanced_bands=balanced)
+    scene = graph_scene()
+    orbit = orbit_cameras(scene.bounds_min, scene.bounds_max, GRAPH_CAMERAS)
+    cams = [orbit[i] for i in REVISITS]
+    r = pd.DistributedRenderer(scene, cfg, mesh=mesh)
+    r.render(cams[0])  # sizes the capacity from the candidates
+    cap = r.capacity
+    one = np.stack([r.render(c, check_saturation=False) for c in cams])
+    batch = r.render_batch(cams[:4], check_saturation=False)
+    want, _ = pd.render_frames_tilesharded(r.scene, pd.stack_cameras(cams), cfg, cap, mesh,
+                                           axis=r.tile_axis)
+    return dict(capacity=(cap, r.capacity), render=one, batch=batch, want=want.numpy(),
+                camera=r._camera.numpy().copy())
+
+
+def sharded_graph_cases(n):
+    """One rank of an ``n``-rank gloo group: the capacity key sequences of
+    SHARDED_KEY_CASES run on ``n`` ranks, and renderer_frames on the 1-D
+    mesh of every rank (uniform and balanced) and on a 2-D mesh of two
+    frame groups (2x1 on two ranks, 2x2 on four)."""
+    from cudagaussianrenderer_torch import orbit_cameras
+    from cudagaussianrenderer_torch.parallel import distributed as pd
+
+    torch.set_num_threads(1)
+    mesh = pd.make_mesh()
+    scene = graph_scene()
+    cams = orbit_cameras(scene.bounds_min, scene.bounds_max, 6)
+    out = {"keys": {name: key_sequence(mesh, balanced, adaptive, start, cams)
+                    for name, ranks, balanced, adaptive, start in SHARDED_KEY_CASES
+                    if ranks == n}}
+    for balanced in (False, True):
+        out[("1d", balanced)] = renderer_frames(mesh, balanced)
+    out[("2d", False)] = renderer_frames(pd.make_mesh_2d(2, n // 2), False)
+    return out
+
+
+def card_graphed_renderer_case():
+    """One rank of a world-size-1 NCCL group, on the card: a
+    DistributedRenderer (3000 splats, SH 3, 128x128, 5 orbit cameras) at
+    keys A, B, A, B, A, A, and render_batch at key A, beside
+    Renderer.render of the same cameras.  Returns (its methods, each frame
+    and each batch frame as NumPy, the Renderer's frames, the graph keys)."""
+    from cudagaussianrenderer_torch import RenderConfig, Renderer, orbit_cameras, random_scene
+    from cudagaussianrenderer_torch.parallel import DistributedRenderer, make_mesh
+
+    mesh = make_mesh()
+    scene = random_scene(3000, seed=0, min_scale=0.002, max_scale=0.053, sh_degree=3,
+                         device=mesh.device)
+    cfg = RenderConfig(screen_size=128)
+    cams = orbit_cameras(scene.bounds_min, scene.bounds_max, 5)
+    ref = Renderer(scene, cfg, device=mesh.device)
+    want = [ref.render(cams[i % 5]) for i in range(6)]
+    r = DistributedRenderer(scene, cfg, mesh=mesh)
+    a = r._key()
+    methods, frames = [], []
+    for i, key in enumerate([a, 2 * a, a, 2 * a, a, a]):
+        r.capacity = key
+        frames.append(r.render(cams[i % 5], check_saturation=False))
+        methods.append(r.last_method)
+    r.capacity = a
+    batch = r.render_batch(cams, check_saturation=False)
+    return methods, frames, want, batch, sorted(r._graphs)
+
+
+def card_failed_sharded_capture_case():
+    """One rank of a world-size-1 NCCL group, on the card: a
+    DistributedRenderer whose frame waits for the host once its key's
+    eager first frame has run.  Returns (whether the capture raised, the
+    keys of the graphs kept, how the last frame ran)."""
+    from cudagaussianrenderer_torch import Camera, RenderConfig, random_scene
+    from cudagaussianrenderer_torch.parallel import DistributedRenderer, make_mesh
+
+    mesh = make_mesh()
+    scene = random_scene(500, seed=2, device=mesh.device)
+    r = DistributedRenderer(scene, RenderConfig(screen_size=128), mesh=mesh)
+    cam = Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max)
+    r.render(cam, check_saturation=False)
+    frame = r._frame
+
+    def syncing(key):
+        image, counts = frame(key)
+        counts.sum().item()  # a host sync: not allowed while capturing
+        return image, counts
+
+    r._frame = syncing
+    try:
+        r.render(cam, check_saturation=False)
+        raised = False
+    except RuntimeError:
+        raised = True
+    return raised, sorted(r._graphs), r.last_method
