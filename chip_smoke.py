@@ -94,7 +94,16 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
      sum of a trace's records) plus the all-gather of the clip buffer and
      the frame's all-reduce bounded at NVLink's 450 GB/s, labelled a
      projection.  Its JSON line ``{"multi_device": ...}`` prints before the
-     per-kernel line.
+     per-kernel line;
+ 13. the measurement tools (cudagaussianrenderer_torch.tools): bench_suite
+     configs 1 and 2 at full size and configs 3, 4, 5 and 6 at 1M splats
+     over half their frames (each graphed frame byte-equal to its eager
+     frame, K1-K4 launched in each config, config 5's pairs and capacity
+     equal to phase 9's, config 6's two lines different in pairs);
+     fit_artifact at its defaults cut to FIT_ARTIFACT_STEPS steps (PSNR must
+     rise); make_artifact over 4 frames (1M splats SH 3 through a .ply and
+     the native importer); sh_basis on the card against the CPU.  Its
+     numbers go to ``phase 13 numbers [card]:`` lines of the log.
 
 Phases 2 and 5 also hold K1 on the corner cases of tests/torch_port_cases.py
 (flat, then segmented; aligned keys and a view 4 bytes off).
@@ -166,6 +175,8 @@ FIT_CAPACITY = 4 << 20
 BAND_COUNTS = (2, 4, 8)
 DP_STEPS = 3
 NVLINK_BYTES_PER_S = 450e9
+# Phase 13: the fit artifact's steps (its default is 600).
+FIT_ARTIFACT_STEPS = 200
 
 
 def log(*args):
@@ -1396,6 +1407,114 @@ def multi_device(dev, scene, cams, frames, config, capacity, tmp, card):
     return result
 
 
+def measurement_tools(dev, tmp, card, head):
+    """Phase 13: the port's measurement tools (cudagaussianrenderer_torch.tools)
+    on the card, each through its ``main``, its printed lines sent to stderr:
+    (a) bench_suite configs 1 and 2 at full size and configs 3, 4, 5 and 6
+    at 1M splats over half their frames (4; config 5 over phase 9's 8
+    cameras), the counts of K1-K4 set to 0 before each config and read
+    after; every graphed frame byte-equal to its eager frame (the suite
+    raises otherwise), config 5's pairs and capacity equal to phase 9's
+    headline ``head`` and its camera 0's pairs to config 4's (the same
+    scene and camera), config 6's two lines different in pairs; (b)
+    fit_artifact at its defaults cut to FIT_ARTIFACT_STEPS steps,
+    psnr_fit_db above psnr_init_db; (c) make_artifact over 4 frames (the
+    1M-splat SH-3 .ply through the native importer); (d) sh_basis on the
+    card against the CPU within 1e-6.  Writes under ``tmp`` only.  Returns
+    the numbers it logged.  Rehearse it on the CPU small by wrapping each
+    tool's ``main`` to add ``--device cpu`` and small sizes."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from cudagaussianrenderer_torch.ops import expand, ranges, raster
+    from cudagaussianrenderer_torch.ops.sh import sh_basis
+    from cudagaussianrenderer_torch.tools import bench_suite, fit_artifact, make_artifact
+
+    counted = (ranges.tile_edges, expand.interleave_rows, expand.emit_slots,
+               raster.rasterize_tiles)
+    # On the CPU (a rehearsal at small sizes) the frames are eager and the
+    # wrappers launch no kernel.
+    cuda = dev.type == "cuda"
+    numbers = {}
+
+    # (a) the suite
+    lines = {}
+    for config, argv in ((1, []), (2, []), (3, ["--frames-scale", "0.5"]),
+                         (4, ["--frames-scale", "0.5"]), (5, ["--frames-scale", "0.5"]),
+                         (6, ["--frames-scale", "0.5"])):
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            out = bench_suite.main([str(config), *argv])
+        launches = {fn.__name__: fn.launches for fn in counted}
+        for line, m in out:
+            require(not cuda or (line["method"] == "cuda_graph"
+                                 and line["graph_frames_equal"] == line["frames"]),
+                    f"{line['config']}: not every graphed frame equals its eager frame")
+            require(not line["saturated"] and line["pairs_per_frame"] > 0,
+                    f"{line['config']}: not a clean measurement: {line}")
+            lines[line["config"]] = dict(line, camera0_pairs=m["frame_pairs"][0])
+        require(not cuda or all(n >= 1 for n in launches.values()),
+                f"config {config}: a kernel of the flat path never launched: {launches}")
+        log(f"  suite config {config} in {time.perf_counter() - t0:.1f} s, launches {launches}: "
+            + "; ".join(f"{ln['config']} {ln['ms_per_frame']} ms/frame graphed, eager "
+                        f"{ln['eager_ms_per_frame']}, busy {ln['device_busy_ms']}, "
+                        f"{ln['pairs_per_frame']} pairs, capacity {ln['capacity']}"
+                        for ln, _ in out))
+    c5 = lines["5_flythrough_1m_1024px"]
+    require(c5["frames"] == 8 and (c5["pairs_per_frame"], c5["capacity"])
+            == (head["pairs_per_frame"], head["capacity"]),
+            f"config 5's pairs and capacity {c5['pairs_per_frame']}, {c5['capacity']} differ "
+            f"from the bench headline's {head['pairs_per_frame']}, {head['capacity']}")
+    require(c5["camera0_pairs"] == lines["4_falloff_gaussian_1m_1024px"]["camera0_pairs"],
+            "config 5's camera 0 differs in pairs from config 4's")
+    exact = lines["6_realistic_alpha_exact3sigma_1m"]["pairs_per_frame"]
+    aware = lines["6_realistic_alpha_aware_1m"]["pairs_per_frame"]
+    require(aware < exact, f"config 6: aware extents {aware} pairs, exact {exact}")
+    log(f"  config 6: opacity-aware extents {aware} pairs/frame against {exact} "
+        f"({1 - aware / exact:.3f} fewer)")
+    numbers["suite"] = lines
+
+    # (b) the fit artifact
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        fit = fit_artifact.main(["--steps", str(FIT_ARTIFACT_STEPS), "--out", str(tmp / "fit")])
+    require(fit["psnr_fit_db"] > fit["psnr_init_db"],
+            f"the fit did not converge: {fit['psnr_init_db']} -> {fit['psnr_fit_db']} dB")
+    log(f"  fit_artifact, {FIT_ARTIFACT_STEPS} steps: PSNR {fit['psnr_init_db']} -> "
+        f"{fit['psnr_fit_db']} dB, loss {fit['loss_first']} -> {fit['loss_last']}, "
+        f"{fit['ms_per_step']} ms/step, in {time.perf_counter() - t0:.1f} s")
+    numbers["fit"] = fit
+
+    # (c) the 1M-splat artifact
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        art = make_artifact.main(["--frames", "4", "--out", str(tmp / "artifact")])
+    require(art["importer"] == "native" and not art["saturated"]
+            and (not cuda or art["graph_frames_equal"] == 4), f"the 1M-splat artifact: {art}")
+    for i in (0, 2):
+        require((tmp / "artifact" / f"artifact_1m_sh3_frame{i}.png").stat().st_size > 0,
+                f"frame {i} of the artifact was not written")
+    log(f"  make_artifact, 4 frames: {art['ply_mb']} MB .ply, native import "
+        f"{art['native_import_s']} s, {art['ms_per_frame']} ms/frame graphed, "
+        f"{art['pairs_per_frame']} pairs, in {time.perf_counter() - t0:.1f} s")
+    numbers["artifact"] = art
+
+    # (d) sh_basis
+    rng = np.random.default_rng(42)
+    d = rng.normal(size=(1 << 16, 3))
+    d = torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32))
+    err = max(float((sh_basis(d.to(dev), k).cpu() - sh_basis(d, k)).abs().max()) for k in range(5))
+    require(err <= 1e-6, f"sh_basis on the card is {err} from the CPU's")
+    log(f"  sh_basis, degrees 0-4 over {d.shape[0]} directions: card within {err:.3g} of the CPU")
+    numbers["sh_basis_max_abs_err"] = err
+    log(f"  phase 13 numbers [{card}]: {json.dumps(numbers)}")
+    return numbers
+
+
 def main() -> int:
     import torch
 
@@ -2038,6 +2157,13 @@ def main() -> int:
         multi = multi_device(dev, renderer.scene, cams, frames, config, renderer.capacity,
                              Path(tmp), card)
         log(f"  phase 12 in {time.perf_counter() - t0:.1f} s")
+
+        # ---- 13. the measurement tools ---------------------------------------------
+        log("== 13. measurement tools: bench_suite configs 1-6, fit_artifact, make_artifact, "
+            "sh_basis")
+        t0 = time.perf_counter()
+        measurement_tools(dev, Path(tmp), card, head)
+        log(f"  phase 13 in {time.perf_counter() - t0:.1f} s")
 
     P = "cudagaussianrenderer_tpu/ops/"
     # name -> (source file, counted wrapper, path that runs it, TPU kernel)

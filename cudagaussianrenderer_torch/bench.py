@@ -112,9 +112,13 @@ def device_line(dev: torch.device) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def probe_capacity(scene, cams, config: RenderConfig, dev) -> int:
-    """bench.py's capacity: the largest candidate count over every camera,
-    0.5% headroom, whole GRAIN groups, at least 2^17 slots."""
+def probe_capacity(scene, cams, config: RenderConfig, dev, floor: int = 1 << 17,
+                   headroom: float = 1.005, grain: int = GRAIN) -> int:
+    """bench.py's capacity: the largest candidate count over every camera
+    of ``cams``, 0.5% headroom, whole GRAIN groups, at least ``floor``
+    slots (bench.py's 2^17; tools/bench_suite.py's GRAIN).  The JAX
+    package's tools/make_artifact.py takes 4% headroom on a 2^16 grain
+    (``headroom``, ``grain``)."""
     counts = []
     for c in cams:
         cam = camera_tensors(c.camera_data(), dev)
@@ -122,7 +126,7 @@ def probe_capacity(scene, cams, config: RenderConfig, dev) -> int:
                               opacities=scene.opacities)
         counts.append(splat_row_packs(clip, splat_tile_rects(clip, config), config).counts.sum())
     candidates = int(torch.stack(counts).max())
-    capacity = max(1 << 17, -(-int(candidates * 1.005) // GRAIN) * GRAIN)
+    capacity = max(floor, -(-int(candidates * headroom) // grain) * grain)
     _log(f"probe: max candidates {candidates} -> capacity {capacity}")
     return capacity
 
@@ -134,11 +138,12 @@ class GraphedOrbit:
 
     The kernel wrappers' launch counters count the capture, not the
     replays: a replay runs on the card without calling any wrapper.  A
-    graph holds no reference to the tensors it reads, so the caller keeps
-    ``scene`` alive while it replays.
+    graph holds no reference to the tensors it reads, so the orbit holds
+    ``scene`` until it is dropped.
     """
 
     def __init__(self, scene, cams, config: RenderConfig, capacity: int, dev: torch.device):
+        self.scene = scene
         self.table = torch.from_numpy(
             np.stack([camera_array(c.camera_data()) for c in cams])).to(dev)
         self.cam = self.table[0].clone()
@@ -297,6 +302,71 @@ def _require_graph_equal(result: dict, frames: int) -> None:
                            "their cameras")
 
 
+def measure_orbit(scene, cams, config: RenderConfig, capacity: int, dev: torch.device) -> dict:
+    """The headline's measurement of one orbit on one device: ``scene``
+    rendered at ``capacity`` for each camera of ``cams``.
+
+    The eager loop (render_frame calls issued back to back, nothing
+    waits) is warmed once and timed best of 3; on the card the frame is
+    then captured as a GraphedOrbit, its frames checked against the eager
+    ones byte for byte, timed best of 3 and traced once.  Host clock, one
+    synchronise at the end of each orbit.  Returns ``method``,
+    ``ms_per_frame`` (graphed on the card, else the eager figure),
+    ``eager_ms_per_frame``, ``graph_frames_equal`` and ``device_busy_ms``
+    a frame (None on the CPU; busy also None if the trace holds no device
+    time), ``pairs_per_frame`` (the mean), ``saturated``, ``frame_pairs``
+    (each camera's num_pairs) and ``frame0`` (camera 0's eager frame as
+    NumPy).  The orbit's graph is dropped on return."""
+    cuda = dev.type == "cuda"
+    frames = len(cams)
+    cam_data = [c.camera_data() for c in cams]
+
+    def eager_orbit(images=False):
+        """Every frame issued from Python back to back; nothing waits."""
+        outs = [render_frame(scene, cd, config, capacity, device=dev) for cd in cam_data]
+        stats = torch.stack([torch.stack([a["num_pairs"], a["num_candidates"]])
+                             for _, a in outs])
+        return stats, [img for img, _ in outs] if images else []
+
+    def best_of_3(orbit):
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            stats, _ = orbit()
+            if cuda:
+                torch.cuda.synchronize(dev)
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3 / frames, stats
+
+    _log("warming the eager orbit...")
+    _, eager_frames = eager_orbit(images=True)
+    frame0 = eager_frames[0].cpu().numpy()
+    eager_ms, stats = best_of_3(eager_orbit)
+    graph_equal = busy = None
+    if cuda:
+        _log("capturing the frame as a CUDA graph...")
+        graphed = GraphedOrbit(scene, cams, config, capacity, dev)
+        _, graph_frames = graphed.run(images=True)
+        graph_equal = sum(bool(torch.equal(a, b)) for a, b in zip(graph_frames, eager_frames))
+        del graph_frames
+        ms_per_frame, stats = best_of_3(graphed.run)
+        busy = device_busy_ms(graphed.run)
+        busy = None if busy is None else busy / frames
+        del graphed
+    else:
+        ms_per_frame = eager_ms
+    del eager_frames
+    stats = stats.cpu()
+    saturated = int(stats[:, 1].max()) > capacity
+    if saturated:
+        _log(f"pair list saturated: max candidates {int(stats[:, 1].max())} > capacity "
+             f"{capacity}; a frame rendered truncated")
+    return dict(method="cuda_graph" if cuda else "eager", ms_per_frame=ms_per_frame,
+                eager_ms_per_frame=eager_ms, graph_frames_equal=graph_equal,
+                device_busy_ms=busy, pairs_per_frame=int(stats[:, 0].double().mean()),
+                saturated=saturated, frame_pairs=stats[:, 0].tolist(), frame0=frame0)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("n_splats", nargs="?", type=int, default=1_000_000)
@@ -320,12 +390,6 @@ def main(argv=None) -> dict:
              f"({result['ms_per_frame']} ms/frame); eager {result['eager_fps']} FPS")
         _require_graph_equal(result, args.frames)
         return result
-    cuda = dev.type == "cuda"
-
-    def sync():
-        if cuda:
-            torch.cuda.synchronize(dev)
-
     scene = random_scene(args.n_splats, seed=0, min_scale=0.002, max_scale=0.053, extent=4.0,
                          device=dev).pad_to_multiple(GRAIN)
     config = RenderConfig(screen_size=args.size, falloff=args.falloff)
@@ -336,51 +400,14 @@ def main(argv=None) -> dict:
     else:
         capacity = probe_capacity(scene, cams, config, dev)
 
-    cam_data = [c.camera_data() for c in cams]
-
-    def eager_orbit(images=False):
-        """Every frame issued from Python back to back; nothing waits."""
-        outs = [render_frame(scene, cd, config, capacity, device=dev) for cd in cam_data]
-        stats = torch.stack([torch.stack([a["num_pairs"], a["num_candidates"]])
-                             for _, a in outs])
-        return stats, [img for img, _ in outs] if images else []
-
-    def best_of_3(orbit):
-        best = float("inf")
-        for _ in range(3):
-            t0 = time.perf_counter()
-            stats, _ = orbit()
-            sync()
-            best = min(best, time.perf_counter() - t0)
-        return best * 1e3 / args.frames, stats
-
-    _log("warming the eager orbit...")
-    _, eager_frames = eager_orbit(images=cuda)
-    eager_ms, stats = best_of_3(eager_orbit)
-    graph_equal = busy = None
-    if cuda:
-        _log("capturing the frame as a CUDA graph...")
-        graphed = GraphedOrbit(scene, cams, config, capacity, dev)
-        _, graph_frames = graphed.run(images=True)
-        graph_equal = sum(bool(torch.equal(a, b)) for a, b in zip(graph_frames, eager_frames))
-        del graph_frames
-        ms_per_frame, stats = best_of_3(graphed.run)
-        busy = device_busy_ms(graphed.run)
-        busy = None if busy is None else busy / args.frames
-    else:
-        ms_per_frame = eager_ms
-    del eager_frames
-    stats = stats.cpu()
-    saturated = int(stats[:, 1].max()) > capacity
-    if saturated:
-        _log(f"pair list saturated: max candidates {int(stats[:, 1].max())} > capacity "
-             f"{capacity}; a frame rendered truncated")
+    m = measure_orbit(scene, cams, config, capacity, dev)
     result = _headline(
-        args, ms_per_frame, int(stats[:, 0].double().mean()), capacity, 1,
-        method="cuda_graph" if cuda else "eager", eager_fps=round(1e3 / eager_ms, 2),
-        eager_ms_per_frame=round(eager_ms, 3), graph_frames_equal=graph_equal,
-        device_busy_ms=None if busy is None else round(busy, 3), saturated=saturated,
-        device=device_line(dev))
+        args, m["ms_per_frame"], m["pairs_per_frame"], capacity, 1, method=m["method"],
+        eager_fps=round(1e3 / m["eager_ms_per_frame"], 2),
+        eager_ms_per_frame=round(m["eager_ms_per_frame"], 3),
+        graph_frames_equal=m["graph_frames_equal"],
+        device_busy_ms=None if m["device_busy_ms"] is None else round(m["device_busy_ms"], 3),
+        saturated=m["saturated"], device=device_line(dev))
     print(json.dumps(result), flush=True)
     _log(f"headline ({result['method']}): {result['value']} FPS ({result['ms_per_frame']} "
          f"ms/frame); eager {result['eager_fps']} FPS ({result['eager_ms_per_frame']} ms/frame)")

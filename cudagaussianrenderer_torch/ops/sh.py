@@ -22,9 +22,17 @@ def num_sh_coeffs(degree: int) -> int:
     return (degree + 1) ** 2
 
 
+def sh_basis(dirs: torch.Tensor, degree: int) -> torch.Tensor:
+    """Real SH basis values for unit directions: ``dirs`` [..., 3] (assumed
+    normalized) -> [..., (degree+1)^2], the planar basis stacked last."""
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    return torch.stack(sh_basis_components(x, y, z, degree), -1)
+
+
 def sh_basis_components(x, y, z, degree: int):
     """Planar basis: x, y, z are [N] rows of unit directions; returns a
-    LIST of (degree+1)^2 [N] tensors."""
+    LIST of (degree+1)^2 [N] tensors.  The single home of the coefficient
+    table; sh_basis stacks it."""
     if not 0 <= degree <= 4:
         raise ValueError("SH degree must be in [0, 4]")
     out = [torch.full_like(x, 0.28209479177387814)]

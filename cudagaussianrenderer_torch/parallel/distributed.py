@@ -542,7 +542,11 @@ class DistributedRenderer:
     same static tensor.
 
     A graph holds no reference to the tensors it reads: the renderer keeps
-    its shard, and a new scene or config takes a new DistributedRenderer."""
+    its shard.  As the JAX DistributedRenderer passes ``self.scene`` to its
+    jitted frame on every call, a scene assigned to ``self.scene`` (the
+    same on every rank) renders from the next frame on: that frame pads
+    and shards it as __init__ does and drops the graphs of the old shard
+    (the capacity stays).  A new config takes a new DistributedRenderer."""
 
     MAX_CAPACITY = _KERNEL_MAX_CAPACITY
 
@@ -559,6 +563,8 @@ class DistributedRenderer:
         self.scene = scene.pad_to_multiple(PREP_BLK * self.n_tile_devices)
         _validate(config, self.mesh, self.tile_axis, self.scene)
         self.shard = shard_scene(self.scene, self.mesh, self.tile_axis)
+        # The scene self.shard was cut from (_follow_scene).
+        self._shard_of = self.scene
         # Per-rank capacity: the global estimate split across bands, clamped
         # to the emit kernel's exact-f32 limit.
         self.capacity = max(1 << 14, config.tile_capacity(self.scene.count) // self.n_tile_devices)
@@ -601,6 +607,18 @@ class DistributedRenderer:
             self.capacity = min(self.capacity * 2, self.MAX_CAPACITY)
             self.saturated = False
 
+    def _follow_scene(self) -> None:
+        """Take up a scene assigned to ``self.scene`` since the last frame:
+        padded, checked and sharded as in __init__, with every graph of the
+        old shard dropped, so that the next frame runs eagerly over it."""
+        if self.scene is self._shard_of:
+            return
+        self._graphs, self._visited, self._pool = {}, set(), None
+        self.scene = self.scene.pad_to_multiple(PREP_BLK * self.n_tile_devices)
+        _validate(self.config, self.mesh, self.tile_axis, self.scene)
+        self.shard = shard_scene(self.scene, self.mesh, self.tile_axis)
+        self._shard_of = self.scene
+
     def _key(self) -> int:
         """The graph cache's key: the per-rank capacity."""
         return round_capacity(self.capacity, self.device)
@@ -619,6 +637,7 @@ class DistributedRenderer:
     def render(self, camera: Camera, *, check_saturation: bool = True) -> np.ndarray:
         """The whole [H, W, 4] uint8 frame as a NumPy array, on every rank."""
         self._grow_if_saturated()
+        self._follow_scene()
         self._camera.copy_(torch.from_numpy(camera_array(camera.camera_data())))
         image, counts = self._run(self._key())
         self.frame_count += 1
@@ -661,6 +680,7 @@ class DistributedRenderer:
         Returns ([F, H, W, 4] uint8 frames, [F, 2] int32 counts:
         num_candidates, num_pairs), on the device; nothing waits for the
         card.  The capacity does not change within the call."""
+        self._follow_scene()
         cfg = self.config
         images = torch.empty((table.shape[0], cfg.screen_h, cfg.screen_w, 4), dtype=torch.uint8,
                              device=self.device)

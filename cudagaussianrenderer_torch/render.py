@@ -484,8 +484,13 @@ class Renderer:
     later one replays it.  A failed capture or replay raises.  On the CPU
     the same frame runs eagerly over the same static tensors.
 
-    A graph holds the scene's tensors, as the JAX jit's closure holds the
-    config: a new scene or config takes a new Renderer."""
+    A graph reads the tensors of the scene it was captured over.  The JAX
+    Renderer passes ``self.scene`` to its jitted frame on every call, so a
+    scene assigned to ``renderer.scene`` renders from the next frame on;
+    here that frame finds the new scene, moves and pads it as __init__
+    does, and drops the graphs, the visited keys and their memory pool
+    (the capacity stays, as in the JAX Renderer).  A new config takes a
+    new Renderer."""
 
     # Hard capacity ceiling: prefix sums travel as exact f32 integers.
     MAX_CAPACITY = _MAX_CAPACITY
@@ -495,6 +500,8 @@ class Renderer:
         self.config = config
         self.device = resolve_device(device)
         self.scene = scene.to(self.device).pad_to_multiple(_PREP_BLK)
+        # The scene the graphs were captured over (_follow_scene).
+        self._graph_scene = self.scene
         self.capacity = min(
             round_capacity(config.tile_capacity(self.scene.count), self.device),
             self.MAX_CAPACITY,
@@ -605,6 +612,7 @@ class Renderer:
             cap = min(self.capacity * 2, self.MAX_CAPACITY)
             self.capacity = self._round_banded(cap) if self.banded else cap
             self.saturated = False
+        self._follow_scene()
         self._camera.copy_(torch.from_numpy(camera_array(camera.camera_data())))
         if self.banded:
             self._band_rows.copy_(_band_rows_tensor(self.band_rows, self.config, "cpu"))
@@ -617,6 +625,16 @@ class Renderer:
             else:
                 self._update_flat(int(counts[0]))
         return image.cpu().numpy()
+
+    def _follow_scene(self) -> None:
+        """Take up a scene assigned to ``self.scene`` since the last frame:
+        on the device and padded as in __init__, with every graph of the
+        old scene dropped, so that the next frame runs eagerly over it."""
+        if self.scene is self._graph_scene:
+            return
+        self.scene = self.scene.to(self.device).pad_to_multiple(_PREP_BLK)
+        self._graph_scene = self.scene
+        self._graphs, self._visited, self._pool = {}, set(), None
 
     def _key(self):
         """The graph cache's key: the JAX Renderer's jit cache key."""
@@ -695,6 +713,7 @@ class Renderer:
         bracketing (Utilities.h:155-187, Demo.cpp:432-476) the stages run
         back to back, one after the other.  ``warmup`` runs (and drops)
         one untimed pass first."""
+        self._follow_scene()
         if warmup:
             self._time_stages(camera)
         stages = self._time_stages(camera)

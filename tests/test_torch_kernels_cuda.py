@@ -769,6 +769,113 @@ def test_graphed_distributed_renderer_equals_eager(dev):
     np.testing.assert_array_equal(batch, np.stack(want[:5]))
 
 
+def test_renderer_renders_a_replaced_scene_on_card(dev):
+    """Renderer renders scene A three times (eager, capture, replay), is
+    given scene B, and its next frame (eager, the old graph dropped) is
+    byte-equal to a fresh Renderer's eager frame over B at the same
+    capacity; B's second and third frames capture and replay it."""
+    from torch_port_cases import GRAPH_SIZE, SWAP_CAPACITY, swap_scenes
+
+    a, b = swap_scenes(dev)
+    cfg = pt.RenderConfig(screen_size=GRAPH_SIZE, capacity=SWAP_CAPACITY)
+    cam = pt.Camera(aspect=1.0).framed(a.bounds_min, a.bounds_max)
+    r = pt.Renderer(a, cfg)
+    methods, frames = [], []
+    for i in range(6):
+        if i == 3:
+            r.scene = b
+        frames.append(r.render(cam))
+        methods.append(r.last_method)
+    assert methods == ["eager", "capture", "replay"] * 2
+    fresh = pt.Renderer(b, cfg)
+    fresh.capacity = r.capacity
+    want = fresh.render(cam)
+    assert fresh.last_method == "eager" and not r.saturated
+    for i in (3, 4, 5):
+        np.testing.assert_array_equal(frames[i], want, err_msg=f"frame {i}")
+    assert not np.array_equal(frames[0], want)
+
+
+def test_distributed_renderer_renders_a_replaced_scene_on_card(dev):
+    """The gloo case of tests/test_torch_scene_swap.py in a world-size-1
+    NCCL group: scene A eager, captured, replayed; scene B's frame and
+    render_batch byte-equal to a fresh DistributedRenderer's over B."""
+    from cudagaussianrenderer_torch.parallel import launch
+    from torch_port_cases import scene_swap_case
+
+    got = launch.spawn(scene_swap_case, 1, "cuda")[0]
+    assert got["methods"] == ["eager", "capture", "replay", "eager"]
+    assert got["saturated"] == (False, False)
+    np.testing.assert_array_equal(got["swapped"], got["fresh"])
+    np.testing.assert_array_equal(got["batch"], got["fresh"])
+    assert not np.array_equal(got["swapped"], got["first"][0])
+
+
+@pytest.mark.parametrize("name", ["single-splat", "one-tile", "huge-splat", "depth-plane"])
+def test_edge_scenes_on_card(dev, name):
+    """The scenes of tests/test_edge_cases.py through Renderer on the card
+    (eager, capture, replay): the JAX test's assertions, every frame equal,
+    the image rule against golden.py and against the CPU's frame."""
+    from torch_port_cases import check_edge_frame, edge_case, image_close
+
+    scene, cfg, cam = edge_case(name, pt, device=dev)
+    r = pt.Renderer(scene, cfg)
+    frames, methods = [], []
+    for _ in range(3):
+        frames.append(r.render(cam))
+        methods.append(r.last_method)
+    assert methods == ["eager", "capture", "replay"] and not r.saturated
+    check_edge_frame(name, frames[0], frames[1])
+    np.testing.assert_array_equal(frames[2], frames[0])
+    image_close(frames[0], golden_render(scene_to_numpy(scene), cam.camera_data(), cfg),
+                f"{name} against golden.py")
+    cpu = pt.Renderer(scene.to("cpu"), cfg, device="cpu").render(cam)
+    image_close(frames[0], cpu, f"{name} against the CPU")
+
+
+def test_sh_basis_on_card_matches_cpu(dev):
+    from cudagaussianrenderer_torch.ops.sh import sh_basis
+
+    rng = np.random.default_rng(42)
+    d = rng.normal(size=(4096, 3))
+    d = torch.from_numpy((d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32))
+    for degree in range(5):
+        got = sh_basis(d.to(dev), degree)
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), sh_basis(d, degree), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("config", [1, 2, 3, 4, 5, 6])
+def test_bench_suite_small_on_card(dev, config, capsys):
+    """Each config of the port's bench suite small on the card (about 2,000
+    splats, 2-4 frames): graphed, every graphed frame byte-equal to its
+    eager frame, the card's name in its line."""
+    from cudagaussianrenderer_torch.tools import bench_suite
+
+    n_scale, size_scale = {1: (0.2, 0.25), 2: (0.02, 0.25)}.get(config, (0.002, 0.125))
+    out = bench_suite.main([str(config), "--n-scale", str(n_scale), "--size-scale",
+                            str(size_scale), "--frames-scale", "0.25"])
+    for line, m in out:
+        assert line["method"] == "cuda_graph" and line["graph_frames_equal"] == line["frames"]
+        assert not line["saturated"] and line["pairs_per_frame"] > 0
+        assert line["device"] != "cpu" and line["capacity"] % 4096 == 0
+        if config == 1:  # a static camera
+            assert set(m["frame_pairs"]) == {line["pairs_per_frame"]}
+
+
+def test_fit_and_make_artifact_small_on_card(dev, tmp_path):
+    """The fit and 1M-splat artifact tools small on the card."""
+    from cudagaussianrenderer_torch.tools import fit_artifact, make_artifact
+
+    rec = fit_artifact.main(["--scene-splats", "300", "--fit-splats", "300", "--views", "3",
+                             "--size", "64", "--steps", "20", "--out", str(tmp_path / "fit")])
+    assert rec["backend"] != "cpu" and rec["psnr_fit_db"] > rec["psnr_init_db"]
+    art = make_artifact.main(["--n", "2000", "--size", "64", "--frames", "4",
+                              "--out", str(tmp_path / "art")])
+    assert art["importer"] == "native" and art["graph_frames_equal"] == 4
+    assert (tmp_path / "art" / "artifact_1m_sh3_frame2.png").exists()
+
+
 def test_failed_capture_raises(dev):
     """A frame that waits for the host cannot be captured: the capture
     raises, the renderer keeps no graph and does not fall back to the

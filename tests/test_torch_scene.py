@@ -214,8 +214,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys, cudagaussianrenderer_torch, cudagaussianrenderer_torch.golden\n"
         "import cudagaussianrenderer_torch.render, cudagaussianrenderer_torch.utils.cuda_build\n"
         "import cudagaussianrenderer_torch.ops.banded\n"
+        "import cudagaussianrenderer_torch.tools.bench_suite, cudagaussianrenderer_torch.tools.fit_artifact\n"
+        "import cudagaussianrenderer_torch.tools.make_artifact\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
-        "'cudagaussianrenderer_tpu')))\n"
+        "'cudagaussianrenderer_tpu', 'tools.')) or m in ('tools', 'bench_suite', 'fit_artifact', "
+        "'make_artifact', 'sh_codegen'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
@@ -248,6 +251,26 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
         pt.render_frame_multipass(scene, cam.camera_data(), cfg, 1024, 2)
     image = pt.Renderer(scene, cfg, device="cpu").render(cam)
     assert image.shape == (64, 64, 4) and image.dtype == np.uint8
+
+
+@pytest.mark.parametrize("tool,argv", [
+    ("bench_suite", ["1", "--n-scale", "0.002", "--size-scale", "0.25", "--frames-scale", "0.125"]),
+    ("fit_artifact", ["--scene-splats", "50", "--fit-splats", "50", "--views", "1",
+                      "--size", "32", "--steps", "1"]),
+    ("make_artifact", ["--n", "50", "--size", "32", "--frames", "1"]),
+])
+def test_tools_need_cuda_unless_cpu(tool, argv, tmp_path, monkeypatch):
+    """Each of the port's tools raises without a card, and runs with
+    ``--device cpu``."""
+    import importlib
+
+    mod = importlib.import_module(f"cudagaussianrenderer_torch.tools.{tool}")
+    if tool != "bench_suite":
+        argv = argv + ["--out", str(tmp_path)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(argv)
+    assert mod.main(argv + ["--device", "cpu"])
 
 
 def test_banded_path_renders_on_cpu():

@@ -23,27 +23,22 @@ CPU runs the same code over the same tensors, so these tests hold:
   and 2-D meshes of two frame groups (2x1 and 2x2).
 
 Every comparison is exact: tolerance 0.  128x128, 350 splats, SH degree 3.
+(c) and (d) run here on 2 ranks and in test_torch_sharded_graph_4ranks.py
+on 4 (their checks: sharded_graph_checks.py).
 """
 
-import functools
-
-import numpy as np
 import pytest
 import torch
 
 import cudagaussianrenderer_torch as pt
-import cudagaussianrenderer_tpu as jx
 from cudagaussianrenderer_torch.ops import binning, raster
 from cudagaussianrenderer_torch.ops.projection import project_splats
 from cudagaussianrenderer_torch.parallel import distributed as pd
-from cudagaussianrenderer_torch.parallel import launch
 from cudagaussianrenderer_torch.render import _frame_pairs, _splat_colors, camera_tensors
-from cudagaussianrenderer_tpu.parallel import distributed as jd
 
+import sharded_graph_checks as checks
 import torch_port_cases as cases
-from torch_port_cases import (  # noqa: F401
-    GRAPH_SEED, GRAPH_SIZE, GRAPH_SPLATS, REVISITS, SHARDED_KEY_CASES, one_torch_thread,
-)
+from torch_port_cases import GRAPH_SIZE, one_torch_thread  # noqa: F401
 
 CONFIGS = [dict(screen_size=GRAPH_SIZE, balanced_bands=True),
            dict(screen_size=GRAPH_SIZE, balanced_bands=True, background=(0.2, 0.4, 0.6))]
@@ -118,86 +113,21 @@ def test_raster_tensor_row_offset_equals_int():
     assert int(counts[sl].sum()) > 0
 
 
-@pytest.fixture(scope="module", params=[2, 4], ids=["2-ranks", "4-ranks"])
+@pytest.fixture(scope="module", params=[2], ids=["2-ranks"])
 def group(request):
-    n = request.param
-    return n, launch.spawn(cases.sharded_graph_cases, n, "cpu", n)
-
-
-def on_every_rank(ranks, key):
-    def eq(a, b):
-        if isinstance(a, dict):
-            return a.keys() == b.keys() and all(eq(a[k], b[k]) for k in a)
-        if isinstance(a, np.ndarray):
-            return a.dtype == b.dtype and np.array_equal(a, b)
-        return a == b
-
-    assert all(eq(r[key], ranks[0][key]) for r in ranks[1:]), f"{key} differs between ranks"
-    return ranks[0][key]
-
-
-@functools.lru_cache(maxsize=None)
-def jax_key_sequence(n, balanced, adaptive, start):
-    """The JAX DistributedRenderer of the same scene, config and start on an
-    n-device mesh: its key (``_get_fn``'s capacity) and capacity a frame."""
-    scene = jx.random_scene(GRAPH_SPLATS, seed=GRAPH_SEED, sh_degree=3)
-    cfg = jx.RenderConfig(screen_size=GRAPH_SIZE, balanced_bands=balanced,
-                          capacity=None if adaptive else start)
-    r = jd.DistributedRenderer(scene, cfg, mesh=jd.make_mesh(n))
-    r.capacity = start
-    keys, after, get_fn = [], [], r._get_fn
-
-    def counted(batched):
-        keys.append((r.capacity, batched))
-        return get_fn(batched)
-
-    r._get_fn = counted
-    for cam in jx.orbit_cameras(scene.bounds_min, scene.bounds_max, 6):
-        r.render(cam)
-        after.append(r.capacity)
-    assert set(keys) == set(r._fns)
-    return [k for k, _ in keys], after
+    return checks.spawn_group(request.param)
 
 
 def test_capacity_keys_follow_the_jax_renderer(group):
     """(c) The key each frame ran at and the capacity after it, frame by
     frame, against the JAX DistributedRenderer; every rank the same."""
-    n, ranks = group
-    seqs = on_every_rank(ranks, "keys")
-    assert set(seqs) == {c[0] for c in SHARDED_KEY_CASES if c[1] == n}
-    for name, ranks_n, balanced, adaptive, start in SHARDED_KEY_CASES:
-        if ranks_n != n:
-            continue
-        keys, after = seqs[name]
-        want_keys, want_after = jax_key_sequence(n, balanced, adaptive, start)
-        assert keys == want_keys, name
-        assert after == want_after, name
-        assert len(set(keys)) == 2 and keys[0] == start  # the case walks keys
+    checks.capacity_keys_follow_the_jax_renderer(group)
 
 
 @pytest.mark.parametrize("mesh,balanced", [("1d", False), ("1d", True), ("2d", False)],
                          ids=["1d-uniform", "1d-balanced", "2d"])
 def test_renderer_frames_equal_tilesharded_frames(group, mesh, balanced):
-    """(d) Cameras visited in the order REVISITS: every ``render`` frame and
-    every ``render_batch`` frame (4 cameras; on the 2-D mesh, 2x1 on two
-    ranks and 2x2 on four, two a frame group) equals
-    render_frames_tilesharded's frame of its camera at the same capacity,
-    byte for byte, on every rank.  The static camera ends holding the last
-    camera of the rank's share of the batch."""
-    n, ranks = group
-    scene = cases.graph_scene()
-    cams = pt.orbit_cameras(scene.bounds_min, scene.bounds_max, 3)
-    tiles = n if mesh == "1d" else n // 2
-    for rank, result in enumerate(ranks):
-        got = result[(mesh, balanced)]
-        want = got["want"]
-        assert want.shape == (len(REVISITS), GRAPH_SIZE, GRAPH_SIZE, 4)
-        assert want[..., 3].max() == 255
-        np.testing.assert_array_equal(got["render"], want, err_msg=f"rank {rank}")
-        np.testing.assert_array_equal(got["batch"], want[:4], err_msg=f"rank {rank}")
-        np.testing.assert_array_equal(got["want"], ranks[0][(mesh, balanced)]["want"])
-        cap, after = got["capacity"]
-        assert cap == after
-        last = 3 if mesh == "1d" else 2 * (rank // tiles) + 1
-        np.testing.assert_array_equal(
-            got["camera"], pt.render.camera_array(cams[REVISITS[last]].camera_data()))
+    """(d) Cameras visited in the order REVISITS: every ``render`` and
+    ``render_batch`` frame equals render_frames_tilesharded's frame of its
+    camera at the same capacity, byte for byte, on every rank."""
+    checks.renderer_frames_equal_tilesharded_frames(group, mesh, balanced)

@@ -710,3 +710,116 @@ def card_failed_sharded_capture_case():
     except RuntimeError:
         raised = True
     return raised, sorted(r._graphs), r.last_method
+
+
+# A replaced scene: the selfcheck's scale, scenes A and B of the same count
+# (B from the next seed), a fixed capacity that both frames fit, so that
+# every frame runs at one key.
+SWAP_CAPACITY = 16384
+
+
+def swap_scenes(device="cpu"):
+    from cudagaussianrenderer_torch import random_scene
+
+    return tuple(random_scene(GRAPH_SPLATS, seed=GRAPH_SEED + i, sh_degree=3, device=device)
+                 for i in range(2))
+
+
+def scene_swap_case():
+    """One rank of a world-size-1 group (gloo on the CPU, NCCL on the card):
+    a DistributedRenderer renders scene A three times (on the card: eager,
+    capture, replay), is given scene B as it stands (not padded) and
+    renders it once as ``render`` and once as ``render_batch``; beside a
+    fresh DistributedRenderer over B at the same capacity.  Returns the
+    frames as NumPy, the methods and the saturation flags."""
+    from cudagaussianrenderer_torch import Camera, RenderConfig
+    from cudagaussianrenderer_torch.parallel import DistributedRenderer, make_mesh
+
+    torch.set_num_threads(1)
+    mesh = make_mesh()
+    a, b = swap_scenes(mesh.device)
+    cfg = RenderConfig(screen_size=GRAPH_SIZE, capacity=SWAP_CAPACITY)
+    cam = Camera(aspect=1.0).framed(a.bounds_min, a.bounds_max)
+    r = DistributedRenderer(a, cfg, mesh=mesh)
+    methods, first = [], []
+    for _ in range(3):
+        first.append(r.render(cam))
+        methods.append(r.last_method)
+    r.scene = b
+    swapped = r.render(cam)
+    methods.append(r.last_method)
+    batch = r.render_batch([cam])[0]
+    fresh = DistributedRenderer(b, cfg, mesh=mesh)
+    fresh.capacity = r.capacity
+    return dict(first=first, swapped=swapped, batch=batch, fresh=fresh.render(cam),
+                methods=methods, saturated=(r.saturated, fresh.saturated),
+                padded=(r.scene.padded_count, fresh.scene.padded_count))
+
+
+# The scenes of tests/test_edge_cases.py (:21, :41, :66, :87), for either
+# package, at one fixed capacity that each fits (the JAX tests start from the
+# adaptive capacity; a fixed one renders the same frame with one compile).
+EDGE_SCENES = ("single-splat", "one-tile", "huge-splat", "depth-plane")
+EDGE_CAPACITY = 16384
+
+
+def _edge_arrays(name):
+    """(scene_from_arrays arguments, bounds or None, RenderConfig options)."""
+    unit = ((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
+    identity = np.array([[0.0, 0.0, 0.0, 1.0]], np.float32)
+    if name == "single-splat":
+        return (dict(means=np.zeros((1, 3), np.float32), scales=np.full((1, 3), 0.3, np.float32),
+                     quats_xyzw=identity, opacities=np.array([0.9], np.float32),
+                     colors=np.array([[1.0, 0.2, 0.1]], np.float32)),
+                unit, dict(screen_size=128))
+    if name == "one-tile":
+        from cudagaussianrenderer_torch.models.scene import random_scene_arrays
+
+        a = random_scene_arrays(64, seed=1)
+        return (dict(means=a["means"], scales=a["scales"], quats_xyzw=a["quats_xyzw"],
+                     opacities=a["opacities"], colors=a["colors"]),
+                ((-4.0,) * 3, (4.0,) * 3), dict(screen_size=16, tiles_per_cell=1))
+    if name == "huge-splat":
+        return (dict(means=np.zeros((1, 3), np.float32), scales=np.full((1, 3), 50.0, np.float32),
+                     quats_xyzw=identity, opacities=np.array([1.0], np.float32),
+                     colors=np.array([[0.0, 1.0, 0.0]], np.float32)),
+                unit, dict(screen_size=64, tiles_per_cell=4))
+    if name == "depth-plane":
+        n = 128
+        rng = np.random.default_rng(3)
+        means = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+        means[:, 2] = 0.0  # one camera-space depth plane
+        return (dict(means=means, scales=np.full((n, 3), 0.1, np.float32),
+                     quats_xyzw=np.tile(identity, (n, 1)),
+                     opacities=np.full(n, 0.5, np.float32),
+                     colors=rng.uniform(0, 1, (n, 3)).astype(np.float32)),
+                unit, dict(screen_size=64, tiles_per_cell=4))
+    raise KeyError(name)
+
+
+def edge_case(name, pkg, *, stable_sort=False, **device):
+    """(scene, RenderConfig, Camera) of edge scene ``name`` built by the
+    package module ``pkg`` (either package's top level; ``device`` goes to
+    the port's scene_from_arrays)."""
+    arrays, bounds, cfg = _edge_arrays(name)
+    scene = pkg.scene_from_arrays(**arrays, **device)
+    scene = dataclasses.replace(scene, bounds_min=bounds[0], bounds_max=bounds[1])
+    config = pkg.RenderConfig(**cfg, capacity=EDGE_CAPACITY, stable_sort=stable_sort)
+    cam = pkg.Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max)
+    return scene, config, cam
+
+
+def check_edge_frame(name, img, again=None):
+    """tests/test_edge_cases.py's own assertions on a frame of ``name``
+    (``again``: a second frame of the same renderer, for the tie case)."""
+    if name == "single-splat":
+        c = img[60:68, 60:68]  # the red-ish splat covers the centre
+        assert c[..., 0].max() > 100 and c[..., 3].max() == 255
+    elif name == "one-tile":
+        assert img.shape == (16, 16, 4) and img[..., 3].max() == 255
+    elif name == "huge-splat":
+        assert (img[..., 1] > 200).mean() > 0.99  # green everywhere
+        assert (img[..., 3] == 255).all()
+    else:
+        np.testing.assert_array_equal(img, again)  # deterministic despite the ties
+        assert img[..., 3].max() == 255
