@@ -104,6 +104,18 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
      rise); make_artifact over 4 frames (1M splats SH 3 through a .ply and
      the native importer); sh_basis on the card against the CPU.  Its
      numbers go to ``phase 13 numbers [card]:`` lines of the log.
+ 14. the measurement harness (cudagaussianrenderer_torch.tools.measure, the
+     JAX repository's tools/measure.py): its eleven subcommands in this
+     process at their default, full-width sizes (1M splats, 1024x1024,
+     capacity 4,587,520), each line a CUDA graph of REPS calls replayed
+     (reorder_scene_by_tile_row by events; trainscale and dpstep on the
+     host clock), no line failed, K1-K8 launched where the subcommand runs
+     them and present by name in the traces of emit (K2, K3), raster (K4)
+     and bandsort's G=16 frame (K5-K8, the segmented K1); then
+     tools/selfcheck.py.  Its numbers go to ``phase 14 numbers [card]:``
+     lines of the log.
+
+Phases 3 and 6 take their scenes from tools/selfcheck.py's case list.
 
 Phases 2 and 5 also hold K1 on the corner cases of tests/torch_port_cases.py
 (flat, then segmented; aligned keys and a view 4 bytes off).
@@ -1515,6 +1527,96 @@ def measurement_tools(dev, tmp, card, head):
     return numbers
 
 
+# Phase 14: the kernels each measure subcommand must launch (by wrapper), and
+# the timed lines whose profiler trace must hold those kernels by name.
+# dpstep runs in a process of its own, so its launches are not counted here.
+MEASURE_LAUNCHES = {
+    "extents": ("tile_edges", "interleave_rows", "emit_slots", "rasterize_tiles"),
+    "emit": ("interleave_rows", "emit_slots"),
+    "raster": ("rasterize_tiles",),
+    "bandsort": ("tile_edges", "interleave_rows", "emit_slots", "rasterize_tiles",
+                 "interleave_rows_padded", "stack_rows", "compact_rows", "emit_slots_banded"),
+    "shardsim": ("tile_edges", "interleave_rows", "emit_slots", "rasterize_tiles"),
+    "shardbal": ("tile_edges", "interleave_rows", "emit_slots", "rasterize_tiles"),
+    "trainscale": ("tile_edges", "interleave_rows", "emit_slots"),
+}
+MEASURE_TRACED = {
+    "emit": {"emit kernels K2+K3 (committed)": ("interleave_rows", "emit_slots")},
+    "raster": {"chunk=128 (prod)": ("rasterize_tiles",), "chunk=256": ("rasterize_tiles",)},
+    "bandsort": {"frame banded G=16": ("interleave_rows_padded", "stack_rows", "compact_rows",
+                                       "emit_slots_banded", "tile_edges", "rasterize_tiles")},
+}
+
+
+def measure_harness(dev, card, goldens=None):
+    """Phase 14: every subcommand of cudagaussianrenderer_torch.tools.measure
+    in this process at its default, full-width sizes (1M splats at 1024²,
+    capacity 4,587,520, REPS 8, trainscale's three rows), its
+    printed lines sent to stderr: no line may fail; every capturable line
+    replays a CUDA graph (only bandsort's reorder_scene_by_tile_row is timed
+    by events); the counts of K1-K8 set to 0 before each subcommand and read
+    after, each kernel of MEASURE_LAUNCHES launched at least once; the
+    profiler traces of the lines of MEASURE_TRACED holding their kernels
+    under the names of TRACE_NAMES (the hand-written kernels ran, not their
+    plain versions).  Then tools/selfcheck.py's cases, which must pass (the
+    golden frames ``goldens`` kept from phases 3 and 6).  Each
+    subcommand's JSON object goes to a ``phase 14 numbers [card]:`` line.
+    Rehearse it on the CPU with ``python -m cudagaussianrenderer_torch.tools.
+    smoke_batch --device cpu`` (the same entry points at smoke sizes)."""
+    import contextlib
+    import re
+
+    import torch
+
+    from cudagaussianrenderer_torch.ops import banded, expand, ranges, raster
+    from cudagaussianrenderer_torch.tools import measure, selfcheck
+
+    wrappers = {fn.__name__: fn for fn in (
+        ranges.tile_edges, expand.interleave_rows, expand.emit_slots, raster.rasterize_tiles,
+        banded.interleave_rows_padded, banded.stack_rows, banded.compact_rows,
+        expand.emit_slots_banded)}
+    seconds = {}
+    for cmd in measure.COMMANDS:
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = measure.run(cmd, dev)
+        seconds[cmd] = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items() if fn.launches}
+        require(not res["failed"], f"measure {cmd}: lines failed: {res['failed']}")
+        missing = [w for w in MEASURE_LAUNCHES.get(cmd, ()) if wrappers[w].launches < 1]
+        require(not missing, f"measure {cmd} never launched {missing}: {launches}")
+        for line in res["lines"]:
+            want = "events" if line["name"].startswith("reorder_scene_by_tile_row") else (
+                "cuda_graph")
+            require(line["method"] in (want, "host clock"),
+                    f"measure {cmd}: {line['name']} ran by {line['method']}")
+        for name, kernels in MEASURE_TRACED.get(cmd, {}).items():
+            trace = next(ln for ln in res["lines"] if ln["name"] == name)["trace"] or {}
+            absent = [k for k in kernels
+                      if not any(re.search(TRACE_NAMES[k], key) for key in trace)]
+            if absent:
+                for key in sorted(trace):
+                    log(f"    traced: {key[:120]}")
+            require(not absent, f"measure {cmd}: the trace of {name!r} lacks {absent}")
+        printed = dict(res, lines=[{k: v for k, v in ln.items() if k != "trace"}
+                                   for ln in res["lines"]])
+        log(f"  measure {cmd} in {seconds[cmd]:.1f} s, launches {launches}: "
+            + "; ".join(f"{ln['name']} {ln['ms_per_rep']:.3f} ms ({ln['method']}, device "
+                        f"{ln.get('device_ms')})" for ln in res["lines"]))
+        log(f"  phase 14 numbers [{card}]: {json.dumps(printed)}")
+        del res, printed
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        drifted = selfcheck.run(dev, goldens)
+    seconds["selfcheck"] = time.perf_counter() - t0
+    require(not drifted, f"tools/selfcheck.py drifted on the card: {drifted}")
+    log(f"  selfcheck: all {len(selfcheck.CASES) + 1} cases pass; seconds "
+        + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
+
+
 def main() -> int:
     import torch
 
@@ -1523,7 +1625,6 @@ def main() -> int:
         return 1
 
     from cudagaussianrenderer_torch import RenderConfig, Renderer, orbit_cameras, random_scene
-    from cudagaussianrenderer_torch.golden import golden_render, scene_to_numpy
     from cudagaussianrenderer_torch.models.camera import Camera
     from cudagaussianrenderer_torch.ops import banded, expand, ranges, raster
     from cudagaussianrenderer_torch.ops.binning import (
@@ -1533,8 +1634,7 @@ def main() -> int:
     from cudagaussianrenderer_torch.ops.projection import project_splats
     from cudagaussianrenderer_torch.ops.sorting import sort_pairs
     from cudagaussianrenderer_torch.render import (
-        _band_rows_tensor, _frame_pairs, _splat_colors, camera_tensors, render_frame,
-        round_capacity,
+        _band_rows_tensor, _frame_pairs, _splat_colors, camera_tensors, round_capacity,
     )
     from cudagaussianrenderer_torch.utils import cuda_build
 
@@ -1740,49 +1840,21 @@ def main() -> int:
         raise AssertionError(f"K4 raster differs by {hlsb} LSB on the huge-splat scene")
 
     # ---- 3. golden scenes --------------------------------------------------
-    # The non-banded cases of tools/tpu_selfcheck.py:52-106 and its
-    # balanced-bands case (:132-150); its two banded cases run in phase 6.
-    log("== 3. golden scenes (port vs golden.py)")
-    cases = [
-        ("gaussian 128px", dict(n=500, seed=2, cfg=dict(screen_size=128))),
-        ("epanechnikov 128px", dict(n=500, seed=2, cfg=dict(screen_size=128, falloff="epanechnikov"))),
-        ("sh-degree-3 128px", dict(n=300, seed=8, sh=3, cfg=dict(screen_size=128))),
-        ("rect 192x128", dict(n=400, seed=6, cfg=dict(screen_size=192, screen_height=128))),
-        ("huge splats 1024px", dict(
-            n=192, seed=9, scene_kw=dict(min_scale=0.3, max_scale=1.6, extent=3.0),
-            cfg=dict(screen_size=1024), capacity=524288,
-        )),
-        ("lex keys (depth_bits=32)", dict(n=400, seed=2, cfg=dict(screen_size=128, depth_bits=32))),
-        ("prod no-pad interleave 4096", dict(
-            n=500, seed=5, pad=4096, cfg=dict(screen_size=128), capacity=16384,
-        )),
-        ("scan-limb margin 128px", dict(n=350, seed=4, cfg=dict(screen_size=128), pix_tol=5)),
-    ]
-    for name, c in cases:
-        gcfg = RenderConfig(**c["cfg"])
-        gscene = random_scene(
-            c["n"], seed=c["seed"], sh_degree=c.get("sh", 0), device=dev,
-            **c.get("scene_kw", {}),
-        ).pad_to_multiple(c.get("pad", 256))
-        gcam = Camera(aspect=gcfg.aspect).framed(gscene.bounds_min, gscene.bounds_max)
-        gcap = c.get("capacity", 16384)
-        got, aux = render_frame(gscene, gcam.camera_data(), gcfg, gcap)
-        if int(aux["num_candidates"]) > gcap:
-            raise AssertionError(f"{name}: saturated, raise the case capacity")
-        want = golden_render(scene_to_numpy(gscene), gcam.camera_data(), gcfg)
-        check(name, got.cpu().numpy(), want, pix_tol=c.get("pix_tol", PIX_TOL))
-    # tools/tpu_selfcheck.py:132-150: each of two balanced bands rendered by
-    # render_band, the placed frames summed.
-    from cudagaussianrenderer_torch.parallel import render_band
+    # The non-banded cases of cudagaussianrenderer_torch/tools/selfcheck.py
+    # (tools/tpu_selfcheck.py's) and its balanced-bands case; its two banded
+    # cases run in phase 6.  The golden frames are kept for phase 6.
+    from cudagaussianrenderer_torch.tools import selfcheck
 
-    gcfg = RenderConfig(screen_size=128)
-    gscene = random_scene(500, seed=2, device=dev).pad_to_multiple(256)
-    gcam = Camera(aspect=gcfg.aspect).framed(gscene.bounds_min, gscene.bounds_max)
-    bsum = sum(render_band(gscene, gcam.camera_data(), gcfg, 16384, 2, d)[0].to(torch.int32)
-               for d in range(2))
-    require(int(bsum.max()) <= 255, "two balanced bands overlap")
-    want = golden_render(scene_to_numpy(gscene), gcam.camera_data(), gcfg)
-    check("balanced bands 2-dev 128px", bsum.to(torch.uint8).cpu().numpy(), want)
+    log("== 3. golden scenes (port vs golden.py)")
+    goldens = {}
+    for name, c in selfcheck.CASES:
+        if not selfcheck.is_banded(c):
+            got, want = selfcheck.case_frames(name, c, dev, goldens)
+            check(name, got, want, pix_tol=c.get("pix_tol", PIX_TOL))
+    # Each of two balanced bands rendered by render_band, the placed frames
+    # summed (it raises if two bands overlap).
+    got, want = selfcheck.balanced_frames(selfcheck.BALANCED[1], dev)
+    check(selfcheck.BALANCED[0], got, want)
 
     # ---- 4. main path at full width ---------------------------------------
     log("== 4. main path: Renderer, 1M splats SH-3, 1024x1024, 8 orbit cameras")
@@ -2011,30 +2083,10 @@ def main() -> int:
 
     # ---- 6. banded golden scenes -------------------------------------------
     log("== 6. banded golden scenes (port vs golden.py)")
-    bcases = [
-        ("banded G=8 128px", dict(n=500, seed=2, cfg=dict(screen_size=128, sort_bands=8),
-                                  ccap=8 * 1024)),
-        ("banded G=16 huge 1024px", dict(
-            n=192, seed=9, scene_kw=dict(min_scale=0.3, max_scale=1.6, extent=3.0),
-            cfg=dict(screen_size=1024, sort_bands=16), capacity=1048576, ccap=16 * 1024,
-        )),
-    ]
-    for name, c in bcases:
-        gcfg = RenderConfig(**c["cfg"])
-        gscene = random_scene(
-            c["n"], seed=c["seed"], device=dev, **c.get("scene_kw", {})
-        ).pad_to_multiple(256)
-        gcam = Camera(aspect=gcfg.aspect).framed(gscene.bounds_min, gscene.bounds_max)
-        gcap = c.get("capacity", 16384)
-        got, aux = render_frame(gscene, gcam.camera_data(), gcfg, gcap,
-                                compact_capacity=c["ccap"])
-        require(int(aux["num_candidates"]) <= gcap, f"{name}: saturated, raise the case capacity")
-        require(int(aux["band_totals"].max()) <= gcap // gcfg.sort_bands,
-                f"{name}: a band saturated, raise the case capacity")
-        require(int(aux["band_splats"].max()) <= c["ccap"] // gcfg.sort_bands,
-                f"{name}: band compaction saturated, raise the case ccap")
-        want = golden_render(scene_to_numpy(gscene), gcam.camera_data(), gcfg)
-        check(name, got.cpu().numpy(), want)
+    for name, c in selfcheck.CASES:
+        if selfcheck.is_banded(c):
+            got, want = selfcheck.case_frames(name, c, dev, goldens)
+            check(name, got, want, pix_tol=c.get("pix_tol", PIX_TOL))
 
     # ---- 7. banded main path at full width ---------------------------------
     log(f"== 7. banded main path: Renderer(sort_bands={G}), same scene and cameras")
@@ -2164,6 +2216,13 @@ def main() -> int:
         t0 = time.perf_counter()
         measurement_tools(dev, Path(tmp), card, head)
         log(f"  phase 13 in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 14. the measurement harness --------------------------------------------
+    log("== 14. measurement harness: every measure subcommand at 1M splats 1024x1024, "
+        "capacity 4,587,520; selfcheck")
+    t0 = time.perf_counter()
+    measure_harness(dev, card, goldens)
+    log(f"  phase 14 in {time.perf_counter() - t0:.1f} s")
 
     P = "cudagaussianrenderer_tpu/ops/"
     # name -> (source file, counted wrapper, path that runs it, TPU kernel)

@@ -876,6 +876,22 @@ def test_fit_and_make_artifact_small_on_card(dev, tmp_path):
     assert (tmp_path / "art" / "artifact_1m_sh3_frame2.png").exists()
 
 
+def test_measure_emit_on_card_launches_k2_and_k3(dev, capsys):
+    """tools/measure.py emit at 20,000 splats: no line fails, every line
+    replays a CUDA graph, and the trace of the emit line holds K2 and K3 by
+    name (chip_smoke.py's TRACE_NAMES)."""
+    import re
+
+    from cudagaussianrenderer_torch.tools import measure
+
+    res = measure.run("emit", dev, n=20_000, capacity=131_072)
+    assert not res["failed"], capsys.readouterr().out[-3000:]
+    assert all(ln["method"] == "cuda_graph" for ln in res["lines"]), res["lines"]
+    trace = next(ln for ln in res["lines"] if ln["name"].startswith("emit kernels"))["trace"]
+    for pattern in (r"::interleave_kernel\(", r"::emit_kernel<false>"):
+        assert any(re.search(pattern, k) for k in trace), sorted(trace)
+
+
 def test_failed_capture_raises(dev):
     """A frame that waits for the host cannot be captured: the capture
     raises, the renderer keeps no graph and does not fall back to the

@@ -216,9 +216,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import cudagaussianrenderer_torch.ops.banded\n"
         "import cudagaussianrenderer_torch.tools.bench_suite, cudagaussianrenderer_torch.tools.fit_artifact\n"
         "import cudagaussianrenderer_torch.tools.make_artifact\n"
+        "import cudagaussianrenderer_torch.tools.measure, cudagaussianrenderer_torch.tools.selfcheck\n"
+        "import cudagaussianrenderer_torch.tools.smoke_batch\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', "
         "'cudagaussianrenderer_tpu', 'tools.')) or m in ('tools', 'bench_suite', 'fit_artifact', "
-        "'make_artifact', 'sh_codegen'))\n"
+        "'make_artifact', 'sh_codegen', 'measure', 'smoke_batch', 'tpu_selfcheck'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )

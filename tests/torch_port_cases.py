@@ -477,24 +477,28 @@ def mesh_frames_case(n):
 
 
 def card_sharded_case(n_bands):
-    """One rank of a world-size-1 NCCL group, on the card: tools/
-    tpu_selfcheck.py's balanced-bands scene (128x128, 500 splats, seed 2)
-    through render_frame_sharded (balanced), and the sum of render_band's
-    frames and pair counts for each band count of ``n_bands``."""
-    from cudagaussianrenderer_torch import Camera, RenderConfig, random_scene
+    """One rank of a world-size-1 NCCL group, on the card: the selfcheck's
+    balanced-bands scene (cudagaussianrenderer_torch/tools/selfcheck.py:
+    BALANCED, 128x128, 500 splats, seed 2) through render_frame_sharded
+    (balanced), and the sum of render_band's frames and pair counts for each
+    band count of ``n_bands``."""
+    import dataclasses
+
     from cudagaussianrenderer_torch.parallel import make_mesh, render_band, render_frame_sharded
+    from cudagaussianrenderer_torch.tools import selfcheck
 
     mesh = make_mesh()
-    cfg = RenderConfig(screen_size=128, balanced_bands=True)
-    scene = random_scene(500, seed=2, device=mesh.device).pad_to_multiple(256)
-    cam = Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max).camera_data()
-    img, aux = render_frame_sharded(scene, cam, cfg, 16384, mesh)
+    case = selfcheck.BALANCED[1]
+    scene, cfg, cam = selfcheck.case_scene(case, mesh.device)
+    cfg = dataclasses.replace(cfg, balanced_bands=True)
+    cap = case["capacity"]
+    img, aux = render_frame_sharded(scene, cam, cfg, cap, mesh)
     bands = {}
     for n in n_bands:
         total = torch.zeros(img.shape, dtype=torch.int32, device=mesh.device)
         pairs = 0
         for d in range(n):
-            full, baux = render_band(scene, cam, cfg, 16384, n, d, device=mesh.device)
+            full, baux = render_band(scene, cam, cfg, cap, n, d, device=mesh.device)
             total += full.to(torch.int32)
             pairs += int(baux["num_pairs"])
         bands[n] = (total.cpu().numpy(), pairs)
