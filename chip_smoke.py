@@ -179,6 +179,14 @@ DIFF_IMG_TOL, DIFF_GRAD_RTOL = 1e-5, 1e-4
 # ~2.3M candidates of a view of the 100,000 SfM points).
 FIT_STEPS, FIT_DENSIFY_EVERY, FIT_RESUME_STEPS, FIT_REFINE_STEPS = 30, 5, 15, 3
 FIT_CAPACITY = 4 << 20
+# Phase 11's graphed fit step against its eager twin on the fit's first view:
+# the steps compared (a key's first eager, its second captured, the rest
+# replayed), the steady steps timed of each, and the tolerance: the same
+# kernels on the same inputs in the same order, pair gradients summed in
+# float64, so bit-equality (0).
+GRAPH_CHECK_STEPS, GRAPH_TIMED_STEPS, GRAPHED_STEP_TOL = 6, 5, 0.0
+# Steps of each before the timed ones, for the graphed step's keys to settle.
+GRAPH_WARM_STEPS = 2
 # Phase 12: the band counts of render_band and of the projected N-card
 # frame; the data-parallel steps held against the hand steps; the H100 SXM
 # data sheet's NVLink rate, each way between a card and the others of its
@@ -1038,12 +1046,18 @@ def diff_and_fit(dev, tmp, size=1024, fit_steps=FIT_STEPS, densify_every=FIT_DEN
             + ("not measured" if busy is None else f"{1 - busy / (1e3 * wall):.3f}")
             + f"; {kernels} kernel and copy records in a trace")
     del grads, upd, opt
+    graphed = graphed_steps(dev, card, init, view, ds.images[1], config, capacity, fit_kmax)
     del ds, init, st, p, target
     m = re.search(r"in [0-9.]+s \(([0-9.]+) ms/step", err)
     fit_ms = float(m.group(1))
     per_step = {k: v / fit_steps for k, v in launches.items()}
-    require(dev.type != "cuda" or all(launches[fn.__name__] >= fit_steps for fn in struct_k),
-            f"K1-K3 were not launched on every fit step: {launches}")
+    fit_graphs = graph_report(dev, err, "fit")
+    # K1-K3 run in every eager structure graph body and twice in a captured
+    # one (the warm-up and the capture); a replay calls no wrapper.
+    s_runs = fit_graphs["structure"]
+    require(dev.type != "cuda" or all(
+        launches[fn.__name__] >= s_runs.get("eager", 0) + 2 * s_runs.get("capture", 0)
+        for fn in struct_k), f"K1-K3 were not launched by every structure body: {launches}")
 
     # Resume to a later step: it starts at the checkpoint's step.
     _, _, err, _ = run_cli(dev, [*fit_args, "--resume", "--steps", fit_steps + resume_steps,
@@ -1051,6 +1065,7 @@ def diff_and_fit(dev, tmp, size=1024, fit_steps=FIT_STEPS, densify_every=FIT_DEN
     require(f"at step {fit_steps}" in err, f"resume did not start at step {fit_steps}: {err[:400]}")
     m = re.search(r"in [0-9.]+s \(([0-9.]+) ms/step", err)
     resume_ms = float(m.group(1))
+    resume_graphs = graph_report(dev, err, "resume")
     log(f"  resumed at step {fit_steps}, {resume_steps} steps: {resume_ms} ms/step")
 
     # Pose and exposure refinement with an export of the refined poses.
@@ -1071,10 +1086,97 @@ def diff_and_fit(dev, tmp, size=1024, fit_steps=FIT_STEPS, densify_every=FIT_DEN
         f"{resume_ms} ms/step resumed; peak memory {peak / 2**30:.2f} GiB; {n0} -> {n1} "
         f"splats, capacity {capacity}, {candidates} candidates on the first step's view, "
         f"k_max {fit_kmax}, remat {remat}")
+    log(f"  fit graphs [{card}]: fit {json.dumps(fit_graphs)}; resumed "
+        f"{json.dumps(resume_graphs)}; graphed step on the view {json.dumps(graphed)}")
     log(f"  launches per fit step [{card}]: " + ", ".join(
         f"{k} {v:.2f}" for k, v in per_step.items() if k != "rasterize_tiles")
         + f" (of {fit_steps} steps, with the k_max structure and the holdout frames); "
         f"rasterize_tiles {launches['rasterize_tiles']} for the 2 holdout frames")
+
+
+def graph_report(dev, err, what):
+    """The CLI fit's "fit graphs:" line as a dict.  On the card its step and
+    structure graphs must have replayed."""
+    import re
+
+    m = re.search(r"fit graphs: (\d+) keys, (\d+) graphs held, structure \(([^)]*)\), step "
+                  r"\(([^)]*)\), (\d+) cache drops, chunk-tiles (\d+) run / (\d+) exact"
+                  r"(?:, memory_reserved (\d+) MiB)?", err)
+    require(m is not None, f"{what}: no graph report")
+    log(f"    {m.group(0)}")
+
+    def runs(text):
+        return {k: int(v) for k, v in (x.split() for x in text.split(", ") if x)}
+
+    out = dict(keys=int(m.group(1)), graphs=int(m.group(2)), structure=runs(m.group(3)),
+               step=runs(m.group(4)), resets=int(m.group(5)), chunk_tiles_run=int(m.group(6)),
+               chunk_tiles_exact=int(m.group(7)),
+               memory_reserved_mib=None if m.group(8) is None else int(m.group(8)))
+    require(dev.type != "cuda" or (out["structure"].get("replay", 0) >= 1
+                                   and out["step"].get("replay", 0) >= 1),
+            f"{what}: its steps never replayed a graph: {out}")
+    return out
+
+
+def graphed_steps(dev, card, init, view, target, config, capacity, k_max):
+    """Phase 11: the fit's step as CUDA graphs (diff.FitStepGraphs) against
+    its eager twin on the fit's first view from the same state (tx_3dgs,
+    the 3DGS loss, pose and exposure refinement, the SH warm-up):
+    GRAPH_CHECK_STEPS steps each (eager, capture, replays), every loss,
+    candidate count, gradient norm and state leaf within GRAPHED_STEP_TOL;
+    then GRAPH_WARM_STEPS more and GRAPH_TIMED_STEPS steady steps of each
+    on the host clock, two traced (device busy, idle share) and one more
+    (kernel and copy records a step), and
+    the graphed step's keys, captures and memory_reserved."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_cases import fit_step_pair, run_step_pair
+
+    from cudagaussianrenderer_torch.tools.measure import method_of, step_methods, timed_steps
+
+    graphed, eager, inputs = fit_step_pair(init, [view], [target], config, capacity, k_max, dev)
+    t0 = time.perf_counter()
+    records, diffs = run_step_pair(graphed, eager, inputs, GRAPH_CHECK_STEPS)
+    check_s = time.perf_counter() - t0
+    for i, (method, lg, le, cg, ce, dn) in enumerate(records):
+        require(abs(lg - le) <= GRAPHED_STEP_TOL and cg == ce and dn <= GRAPHED_STEP_TOL,
+                f"graphed fit step {i} ({method}): loss {lg} against {le}, candidates {cg} "
+                f"against {ce}, gradient norms off by {dn}")
+    require(max(diffs) <= GRAPHED_STEP_TOL, f"graphed fit state off the eager: {diffs}")
+    methods = [r[0] for r in records]
+    require(dev.type != "cuda" or methods.count("replay") >= 1,
+            f"the graphed fit step never replayed: {methods}")
+    log(f"  graphed fit step vs eager, {GRAPH_CHECK_STEPS} steps ({', '.join(methods)}) in "
+        f"{check_s:.1f} s: losses, candidates, gradient norms and {len(diffs)} state leaves "
+        f"equal (max |diff| {max(diffs):g}, bound {GRAPHED_STEP_TOL:g})")
+    rows, tgts = inputs
+    out = dict(check_methods=methods, remat=config.screen_w * config.screen_h * k_max * 16
+               > 2 << 30)
+    for name, step in (("eager", eager), ("graphed", graphed)):
+        def run(i, step=step):
+            return step.step(rows[0], tgts[0], None, 0, 127)[0]
+
+        for i in range(GRAPH_WARM_STEPS):
+            float(run(i))
+        before = dict(step.methods["step"])
+        timing = timed_steps(dev, run, GRAPH_TIMED_STEPS)
+        ran = step_methods(step, before)
+        if dev.type == "cuda":
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                float(run(0))
+            timing["records"] = sum(e.count for e in prof.key_averages()
+                                    if e.device_type == DeviceType.CUDA)
+        out[name] = dict(timing, method=method_of(ran))
+    rep = graphed.report()
+    out.update(keys=rep["keys"], captures=rep["step"].get("capture", 0) + rep["structure"].get(
+        "capture", 0), memory_reserved=rep.get("memory_reserved"))
+    log(f"  graphed fit step [{card}]: " + json.dumps(out))
+    require(dev.type != "cuda" or ran.get("replay", 0) >= 1,
+            f"the timed graphed steps never replayed: {out['graphed']}")
+    return out
 
 
 def multi_device_rank(ws, n_splats, size, dp_capacity):
@@ -1590,7 +1692,10 @@ def measure_harness(dev, card, goldens=None):
         for line in res["lines"]:
             want = "events" if line["name"].startswith("reorder_scene_by_tile_row") else (
                 "cuda_graph")
-            require(line["method"] in (want, "host clock"),
+            if cmd in ("trainscale", "dpstep") and line["name"].endswith(" eager"):
+                want = "eager"
+            require(line["method"] == want or cmd in ("trainscale", "dpstep") and want ==
+                    "cuda_graph" and line["step_methods"].get("replay", 0) >= 1,
                     f"measure {cmd}: {line['name']} ran by {line['method']}")
         for name, kernels in MEASURE_TRACED.get(cmd, {}).items():
             trace = next(ln for ln in res["lines"] if ln["name"] == name)["trace"] or {}

@@ -393,6 +393,21 @@ def cmd_interactive(args):
     print(f"ran {frame} interactive frames -> {out}", file=sys.stderr)
 
 
+def fit_graphs_line(report: dict) -> str:
+    """diff.FitStepGraphs.report() as one line: how the fit's steps ran."""
+
+    def ran(counts):
+        return ", ".join(f"{k} {counts[k]}" for k in ("eager", "capture", "replay") if k in counts)
+
+    line = (f"fit graphs: {report['keys']} keys, {report['graphs']} graphs held, structure "
+            f"({ran(report['structure'])}), step ({ran(report['step'])}), {report['resets']} "
+            f"cache drops, chunk-tiles {report['chunk_tiles_run']} run / "
+            f"{report['chunk_tiles_exact']} exact")
+    if "memory_reserved" in report:
+        line += f", memory_reserved {report['memory_reserved'] / 2 ** 20:.0f} MiB"
+    return line
+
+
 def cmd_fit(args):
     """Fit a splat scene to target views by gradient descent: the
     differentiable path (diff.py) on the card.
@@ -538,6 +553,7 @@ def cmd_fit(args):
     print(f"fitting {n_splats} splats, capacity {capacity}, k_max {k_max}, "
           f"{args.steps} steps...", file=sys.stderr)
     t0 = time.perf_counter()
+    graphs = {}
     fit_out = diff.fit(
         params, cam_data, targets, config,
         capacity=capacity, k_max=k_max, steps=args.steps,
@@ -554,8 +570,10 @@ def cmd_fit(args):
         checkpoint_every=(args.checkpoint_every or (args.steps if args.checkpoint else 0)),
         checkpoint_path=args.checkpoint,
         device=dev,
+        stats=graphs,
         **resume_kw,
     )
+    print(fit_graphs_line(graphs), file=sys.stderr)
     fit_out = list(fit_out)
     exposure_out = fit_out.pop() if args.refine_exposure else None
     if args.refine_poses:

@@ -31,6 +31,8 @@ hand-written optax-equivalent optimizers ``Adam`` and ``tx_3dgs``, density
 control, pose and exposure refinement and ``.npz`` checkpoints whose keys
 are the JAX package's, so a checkpoint written by either package resumes
 in the other.  ``ssim`` is the D-SSIM statistic of the training loss.
+The JAX fit jits its step; here the step runs as FitStepGraphs
+(GraphedStep): on the card two CUDA graphs a step, cached per key.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -38,8 +40,10 @@ Entry points run on the card unless the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import warnings
+from collections import Counter
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -54,7 +58,9 @@ from .ops.projection import SplatClipData, project_splats
 from .ops.ranges import tile_ranges
 from .ops.sh import evaluate_sh_colors, num_sh_coeffs
 from .ops.sorting import sort_pairs
-from .render import camera_tensors, round_capacity
+from .render import (
+    CAMERA_FLOATS, camera_flat, camera_tensors, camera_views, round_capacity, run_graphed,
+)
 from .utils.device import resolve_device
 from .utils.quantize import decode_quat_components, quat_xyzw_to_rotation_matrix
 
@@ -387,6 +393,52 @@ def max_tile_count(structure: PairStructure) -> int:
     return int(structure.counts.max())
 
 
+def default_tile_batch(device) -> int:
+    """rasterize_diff's block of tiles on ``device``."""
+    return TILE_BATCH_CUDA if torch.device(device).type == "cuda" else TILE_BATCH_CPU
+
+
+def _chunking(config: RenderConfig, k_max: int):
+    """(pairs a chunk, chunks that cover ``k_max`` pairs)."""
+    chunk = min(config.raster_chunk, max(8, k_max))
+    return chunk, max(1, -(-k_max // chunk))
+
+
+def round_up_chunks(c: int, n_chunks: int) -> int:
+    """``c`` chunks rounded up to three significant bits (1-7, 8, 10, 12,
+    14, 16, 20, 24, 28, 32, 40, ...), at most ``n_chunks``: at most a
+    quarter more chunks, for far fewer distinct block profiles."""
+    c = int(c)
+    if c > 7:
+        shift = c.bit_length() - 3
+        c = -(-c >> shift) << shift
+    return min(c, n_chunks)
+
+
+def block_profile(counts, config: RenderConfig, k_max: int, tile_batch: int) -> tuple:
+    """rasterize_diff's host part: from the per-tile pair counts (host
+    values), the chunks each block of ``tile_batch`` tiles blends, the tiles
+    taken in order of falling pair count (capped at ``k_max``): enough for
+    its fullest tile, at most k_max's.  A chunk past a tile's pairs adds
+    exactly zero to the image and to every gradient, so any profile that
+    is at least this one block by block gives the same result."""
+    chunk, n_chunks = _chunking(config, k_max)
+    needed = np.minimum(np.asarray(counts).reshape(-1).astype(np.int64), k_max)
+    fullest = -np.sort(-needed)[::tile_batch]
+    return tuple(int(c) for c in np.minimum(n_chunks, -(-fullest // chunk)))
+
+
+def tile_order(counts: torch.Tensor, k_max: int):
+    """rasterize_diff's device part of the tile order: the tiles by falling
+    pair count (capped at ``k_max``), ties in tile order (the permutation of
+    ``np.argsort(-needed, kind="stable")``), and its inverse; no readback."""
+    needed = torch.clamp(counts, max=k_max)
+    order = torch.sort(-needed, stable=True).indices
+    inverse = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.shape[0], dtype=order.dtype, device=order.device))
+    return order, inverse
+
+
 def rasterize_diff(
     clip: SplatClipData,
     colors: torch.Tensor,
@@ -399,6 +451,7 @@ def rasterize_diff(
     alpha_max: float = 0.9995,
     return_depth: bool = False,
     remat: Optional[bool] = None,
+    profile: Optional[tuple] = None,
 ):
     """Differentiable rasterizer.  Returns [H, W, 4] float32 in [0, 1];
     with ``return_depth``, a ([H, W, 4], depth [H, W]) pair where depth is
@@ -414,11 +467,14 @@ def rasterize_diff(
     ``k_max`` caps the pairs per tile (pick k_max >= max_tile_count for
     exactness).  ``tile_batch`` tiles are blended at once (default
     TILE_BATCH_CPU on the CPU, TILE_BATCH_CUDA on the card), the tiles
-    taken in order of falling pair count, and a block blends only the
-    chunks its fullest tile reaches: a chunk of dead pairs adds exactly
-    zero, so neither changes the image or the gradient.  That needs the
-    counts on the host: one readback a frame.  ``remat`` checkpoints each
-    chunk's blend: the
+    taken in order of falling pair count (tile_order, on the device), and
+    a block blends only the chunks of ``profile`` (block_profile: enough
+    for its fullest tile, rounded up or not): a chunk of dead pairs adds
+    exactly zero, so neither changes the image or the gradient.  Without a
+    ``profile`` the counts come to the host to make one: one readback a
+    frame.  With one, nothing is read back or copied from the host, so a
+    CUDA graph can capture the call.  ``remat`` checkpoints each chunk's
+    blend: the
     backward pass recomputes the chunk's [tiles, pixels, chunk]
     activations instead of storing all of them.  None turns it on when the
     estimated stored residuals (pixels x k_max x 16 B) exceed 2 GiB.
@@ -427,12 +483,16 @@ def rasterize_diff(
         remat = config.screen_w * config.screen_h * k_max * 16 > 2 << 30
     dev = opacities.device
     if tile_batch is None:
-        tile_batch = TILE_BATCH_CUDA if dev.type == "cuda" else TILE_BATCH_CPU
+        tile_batch = default_tile_batch(dev)
     ts = config.tile_size
     ntx, nty = config.tiles_x, config.tiles_y
     t_total = config.total_tiles
-    chunk = min(config.raster_chunk, max(8, k_max))
-    n_chunks = max(1, -(-k_max // chunk))
+    chunk, n_chunks = _chunking(config, k_max)
+    if profile is None:
+        profile = block_profile(structure.counts.cpu().numpy(), config, k_max, tile_batch)
+    if len(profile) != -(-t_total // tile_batch) or max(profile) > n_chunks:
+        raise ValueError(f"a profile of {len(profile)} blocks of at most {n_chunks} chunks, "
+                         f"got {profile}")
     cap = structure.sids.shape[0]
     p_tile = ts * ts
     gauss = config.falloff == "gaussian"
@@ -453,6 +513,10 @@ def rasterize_diff(
         cols.append(clip.z)
     attrs = torch.stack(cols, dim=1).to(torch.float64)
     karange = torch.arange(chunk, dtype=torch.int32, device=dev)
+    if config.background is not None:
+        # The background's floats as fills on the device (no host copy).
+        bg = torch.stack([torch.full((), float(c), dtype=torch.float32, device=dev)
+                          for c in config.background])
 
     def tile_block(tids, n_chunks):
         """Blend the tiles ``tids`` over their first ``n_chunks`` chunks of
@@ -519,7 +583,6 @@ def rasterize_diff(
             # The production raster's compositing: the opaque background
             # under the remaining transmittance (differentiable: gradients
             # reach the occluding alphas through log T).
-            bg = torch.tensor(config.background, dtype=torch.float32, device=dev)
             rgb = rgb + torch.exp(log_t)[:, :, None] * bg[None, None, :]
             alpha_ch = torch.ones((n_t, p_tile), dtype=torch.float32, device=dev)
         else:
@@ -530,14 +593,9 @@ def rasterize_diff(
         return torch.cat(out, dim=-1)
 
     nc = 5 if return_depth else 4
-    needed = np.minimum(structure.counts.cpu().numpy(), k_max)
-    order = np.argsort(-needed, kind="stable")
-    blocks = []
-    for b in range(0, t_total, tile_batch):
-        tids = order[b:b + tile_batch]
-        blocks.append(tile_block(torch.from_numpy(tids).to(dev),
-                                 min(n_chunks, -(-int(needed[tids].max()) // chunk))))
-    inverse = torch.from_numpy(np.argsort(order, kind="stable")).to(dev)
+    order, inverse = tile_order(structure.counts, k_max)
+    blocks = [tile_block(order[i * tile_batch:(i + 1) * tile_batch], c)
+              for i, c in enumerate(profile)]
     tiles = torch.cat(blocks)[inverse]
     image = (
         tiles.reshape(nty, ntx, ts, ts, nc)
@@ -562,6 +620,7 @@ def render_diff(
     alpha_max: float = 0.9995,
     return_depth: bool = False,
     remat: Optional[bool] = None,
+    profile: Optional[tuple] = None,
     device=None,
 ):
     """Differentiable frame render on ``device`` (default: the card; the
@@ -571,7 +630,8 @@ def render_diff(
     Returns (image [H, W, 4] float32, structure), or (image, depth [H, W],
     structure) with ``return_depth`` (expected linear clip depth; see
     rasterize_diff).  Pass ``structure`` to reuse a frozen one; by default
-    it is built for this camera by build_structure.
+    it is built for this camera by build_structure.  ``profile``: see
+    rasterize_diff.
     """
     dev = resolve_device(device)
     cam = _camera(camera_data, dev)
@@ -582,6 +642,7 @@ def render_diff(
     out = rasterize_diff(
         clip, colors, opac, structure, config, k_max,
         tile_batch=tile_batch, alpha_max=alpha_max, return_depth=return_depth, remat=remat,
+        profile=profile,
     )
     if return_depth:
         image, depth = out
@@ -681,6 +742,8 @@ def view_loss(
     gain: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     remat: Optional[bool] = None,
+    structure: Optional[PairStructure] = None,
+    profile: Optional[tuple] = None,
     device=None,
 ):
     """The training loss of one view, as ``fit`` takes it: render_diff of
@@ -688,14 +751,15 @@ def view_loss(
     (1 - SSIM) of its RGB against ``target`` ([H, W, 3] float in [0, 1]),
     and, with ``depth_weight`` and ``depth_target``, a masked depth L1 (NaN
     marks unsupervised pixels).  ``gain`` and ``bias`` ([3] each) expose
-    the render per view first.
+    the render per view first.  ``structure`` and ``profile`` go to
+    render_diff.
 
     Returns (loss: a 0-d tensor, or 0.0 when every weight is 0, the
     structure's num_candidates).
     """
     use_depth = depth_weight > 0 and depth_target is not None
     out = render_diff(params, camera, config, capacity, k_max, return_depth=use_depth,
-                      remat=remat, device=device)
+                      remat=remat, structure=structure, profile=profile, device=device)
     image, structure = out[0], out[-1]
     rgb = image[..., :3]
     if gain is not None:
@@ -956,6 +1020,341 @@ def densify_and_prune(
 
 
 # ---------------------------------------------------------------------------
+# The compiled training step: CUDA graphs cached per key
+# ---------------------------------------------------------------------------
+
+
+def _same_layout(a, b) -> bool:
+    """Whether two pytrees have the same leaves in count, shape and dtype."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return type(a) is type(b) and len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype for x, y in zip(la, lb))
+
+
+class GraphedStep:
+    """A training step in the compiled form the JAX package jits it to: on
+    the card two CUDA graphs a step, cached per key as the JAX jit caches
+    its programs, with one readback between them.
+
+    - **S**, the structure: each view's pair structure (build_structure:
+      stages A-E under ``no_grad``, K2, K3, the stable sort, K1) into
+      static buffers, and its per-tile counts into a host buffer (pinned
+      on the card).
+    - The host waits for S and makes each view's block profile from the
+      counts (block_profile; on the card covered by a key already made, or
+      rounded up, to bound the keys: _cover).
+    - **B**, the step: the blend over that profile, the loss, its
+      gradients, the optimizer's update, written into the state's static
+      buffers in place (the subclass's ``_step_body``).
+
+    S's key is the subclass's static key (``key()``: what the JAX jit
+    retraces on); B's adds the profiles.  A key's first visit runs eagerly
+    under render.run_sync_free, so that a host copy or sync in a body
+    raises; its second is captured (render.capture_frame, into the one
+    pool of this object) and replayed; later visits replay.  A failed
+    capture raises.  B's side-stream warm-up writes nothing, so a capture
+    visit takes one step.  On the CPU every body runs eagerly.
+
+    Memory: the state, the inputs and the structure are static tensors
+    allocated outside the pool.  The graphs share the pool, which is safe
+    because they replay one at a time on one stream and nothing a graph
+    allocates is read after another graph replays: S's results go to
+    static buffers, B's outputs (loss, candidates, gradient norms) are
+    read before the next step.  State whose leaves change shape (a
+    densify) takes new buffers, and the graphs, which read the old ones,
+    are dropped with their pool."""
+
+    def __init__(self, config: RenderConfig, capacity: int, k_max: int, n_views: int, device, *,
+                 remat: Optional[bool] = None, error_mode: str = "global"):
+        self.dev = resolve_device(device)
+        # run_graphed's switch: graphs on the card, eager elsewhere.
+        self.device = self.dev
+        self.config = config
+        self.capacity = round_capacity(capacity, self.dev)
+        self.k_max = k_max
+        self.remat = remat
+        self.error_mode = error_mode
+        self.tile_batch = default_tile_batch(self.dev)
+        # The graph cache (render.run_graphed's): key -> (graph, outputs),
+        # the visited keys and the one pool; set by _structure_buffers.
+        self._structure_buffers(n_views)
+        self._ready = torch.cuda.Event() if self.dev.type == "cuda" else None
+        self.last_method: Optional[str] = None
+        # What ran, by graph ("structure", "step") and method; keys made;
+        # cache drops; blended chunk-tiles of the exact and the run profiles.
+        self.methods = {"structure": Counter(), "step": Counter()}
+        self._keys: set = set()
+        self.resets = 0
+        self.chunk_tiles = [0, 0]
+
+    # -- state --------------------------------------------------------------
+
+    def _structure_buffers(self, n_views: int) -> None:
+        """Static buffers for the structures of ``n_views`` views and their
+        counts on the host; the graphs, which read the old ones, go."""
+        t = self.config.total_tiles
+
+        def buf(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=self.dev)
+
+        self.structures = [PairStructure(sids=buf(self.capacity), starts=buf(t), counts=buf(t),
+                                         num_candidates=buf()) for _ in range(n_views)]
+        self._counts_host = torch.zeros((n_views, t), dtype=torch.int32,
+                                        pin_memory=self.dev.type == "cuda")
+        self._graphs, self._visited, self._pool = {}, set(), None
+
+    def _bind(self, **trees) -> None:
+        """Make ``trees`` the state: copied into its static buffers where
+        every leaf keeps its shape and dtype, else into new ones, and then
+        the graphs, which read the old buffers, are dropped."""
+        renewed = False
+        for name, tree in trees.items():
+            old = getattr(self, name, None)
+            if old is not None and _same_layout(old, tree):
+                for d, x in zip(tree_leaves(old), tree_leaves(tree)):
+                    if d is not x:
+                        d.copy_(x)
+            else:
+                setattr(self, name, tree_map(lambda a: a.detach().to(self.dev).clone(), tree))
+                renewed = True
+        if renewed:
+            self._graphs, self._visited, self._pool = {}, set(), None
+            self.resets += 1
+
+    def _state(self) -> list:
+        """The state's leaves, in the order _step_body returns them."""
+        raise NotImplementedError
+
+    def _commit(self, new_leaves) -> None:
+        for d, x in zip(self._state(), new_leaves):
+            d.copy_(x)
+
+    # -- the two graphs ------------------------------------------------------
+
+    def key(self):
+        """The static key (S's; B's adds the profiles)."""
+        raise NotImplementedError
+
+    def _structure_cameras(self) -> list:
+        """Each view's camera for S (a dict of tensors, no gradient)."""
+        raise NotImplementedError
+
+    def _run(self, kind: str, key, body, warmup=None):
+        key = (kind, key)
+        self._keys.add(key)
+        out = run_graphed(self, key, body, error_mode=self.error_mode, warmup=warmup)
+        self.methods[kind][self.last_method] += 1
+        return out
+
+    def _structure_body(self):
+        with torch.no_grad():
+            for v, cam in enumerate(self._structure_cameras()):
+                st = build_structure(self.params, cam, self.config, self.capacity, device=self.dev)
+                for dst, src in zip(self.structures[v], st):
+                    dst.copy_(src)
+                self._counts_host[v].copy_(st.counts, non_blocking=True)
+        return ()
+
+    def _profiles(self, key) -> tuple:
+        """S at ``key``, the wait for its counts, and each view's exact
+        block profile."""
+        self._run("structure", key, self._structure_body)
+        if self._ready is not None:
+            self._ready.record()
+            self._ready.synchronize()
+        return tuple(block_profile(c, self.config, self.k_max, self.tile_batch)
+                     for c in self._counts_host.numpy())
+
+    def _chunk_tiles(self, profiles) -> int:
+        """The chunk-tiles that ``profiles`` blend."""
+        t, tb = self.config.total_tiles, self.tile_batch
+        sizes = [min(tb, t - i * tb) for i in range(-(-t // tb))]
+        return sum(int(np.dot(p, sizes)) for p in profiles)
+
+    def _cover(self, key, exact) -> tuple:
+        """The profiles B blends.  On the CPU the exact ones.  On the card a
+        profile that covers them block by block gives the same result (a
+        chunk past a tile's pairs adds exactly zero), so B reuses the
+        cheapest key already made at ``key`` whose profiles cover them and
+        blend at most a quarter more chunk-tiles than the exact ones rounded
+        up (round_up_chunks); else it makes a key of the rounded ones."""
+        if self.device.type != "cuda":
+            return exact
+        n_chunks = _chunking(self.config, self.k_max)[1]
+        best = tuple(tuple(round_up_chunks(c, n_chunks) for c in p) for p in exact)
+        limit = 1.25 * self._chunk_tiles(best)
+        cost = None
+        for kind, (k, profiles) in (v for v in self._visited if v[0] == "step"):
+            covers = k == key and all(a >= b for pa, pb in zip(profiles, exact)
+                                      for a, b in zip(pa, pb))
+            c = self._chunk_tiles(profiles) if covers else None
+            if covers and c <= limit and (cost is None or c < cost):
+                best, cost = profiles, c
+        return best
+
+    def _step(self, body):
+        """S, the profiles, then B (``body(profiles, effects=...)``: the
+        warm-up runs it without its effects); returns B's outputs."""
+        key = self.key()
+        exact = self._profiles(key)
+        profiles = self._cover(key, exact)
+        self.chunk_tiles[0] += self._chunk_tiles(exact)
+        self.chunk_tiles[1] += self._chunk_tiles(profiles)
+        return self._run("step", (key, profiles), functools.partial(body, profiles),
+                         warmup=functools.partial(body, profiles, effects=False))
+
+    def report(self) -> dict:
+        """What ran: keys made, graphs held now, each graph's eager,
+        captured and replayed visits, cache drops, the chunk-tiles the
+        rounded profiles blended against the exact ones, and the card's
+        memory_reserved (bytes)."""
+        out = dict(keys=len(self._keys), graphs=len(self._graphs), resets=self.resets,
+                   structure=dict(self.methods["structure"]), step=dict(self.methods["step"]),
+                   chunk_tiles_exact=self.chunk_tiles[0], chunk_tiles_run=self.chunk_tiles[1])
+        if self.dev.type == "cuda":
+            out["memory_reserved"] = torch.cuda.memory_reserved(self.dev)
+        return out
+
+
+def fit_step_key(params: DiffSplats, config: RenderConfig, capacity: int, k_max: int,
+                 n_views: int, image_shape, *, loss_weights, use_depth: bool, sh_warmup: bool,
+                 optimize_cameras: bool, optimize_exposure: bool, remat: Optional[bool]):
+    """diff.fit's graph key: what the JAX fit's jitted step retraces on.
+    The splat count and SH width (a densify changes them), the capacity,
+    k_max and config, the loss weights (L1, D-SSIM, L2, depth) and flags
+    (depth, SH warm-up, pose and exposure refinement, remat), the view
+    count and the image shape."""
+    return (int(params.means.shape[-1]), None if params.sh is None else int(params.sh.shape[1]),
+            capacity, k_max, config, tuple(float(w) for w in loss_weights), bool(use_depth),
+            bool(sh_warmup), bool(optimize_cameras), bool(optimize_exposure), n_views,
+            tuple(image_shape), remat)
+
+
+class FitStepGraphs(GraphedStep):
+    """diff.fit's step (the JAX fit's ``@jax.jit step``) as GraphedStep's
+    two graphs.  Its state: the DiffSplats leaves, the optimizer state,
+    the extras (CameraDeltas, Exposure) and their Adam states.  Its inputs,
+    refilled before each step: the view's camera (camera_array's floats,
+    a device-to-device copy), target and depth target, and the view index
+    and SH warm-up degree as 0-d int32 tensors.  B's outputs: the loss,
+    the candidate count and the per-splat gradient norms."""
+
+    def __init__(self, config: RenderConfig, capacity: int, k_max: int, *, params, opt_state,
+                 tx, extras: dict, extra_state: dict, extra_txs: dict, n_views: int,
+                 image_shape, l1_weight: float, ssim_weight: float, l2_weight: float,
+                 depth_weight: float, use_depth: bool, sh_bands: Optional[torch.Tensor],
+                 remat: Optional[bool], device):
+        super().__init__(config, capacity, k_max, 1, device, remat=remat)
+        dev = self.dev
+        self.tx, self.extra_txs, self.n_views = tx, extra_txs, n_views
+        self.image_shape = tuple(image_shape)
+        self.weights = (l1_weight, ssim_weight, l2_weight, depth_weight)
+        self.use_depth = use_depth
+        self.sh_bands = sh_bands
+        self._camera = torch.zeros(CAMERA_FLOATS, dtype=torch.float32, device=dev)
+        self._camera_views = camera_views(self._camera)
+        self._target = torch.zeros(self.image_shape + (3,), dtype=torch.float32, device=dev)
+        self._dtarget = (torch.zeros(self.image_shape, dtype=torch.float32, device=dev)
+                         if use_depth else None)
+        self._idx = torch.zeros((), dtype=torch.int32, device=dev)
+        self._sh_active = torch.zeros((), dtype=torch.int32, device=dev)
+        self._bind(params=params, opt_state=opt_state, extras=extras, extra_state=extra_state)
+
+    def load(self, params, opt_state) -> None:
+        """New parameters and optimizer state (after a densify)."""
+        self._bind(params=params, opt_state=opt_state)
+
+    def key(self):
+        return fit_step_key(
+            self.params, self.config, self.capacity, self.k_max, self.n_views, self.image_shape,
+            loss_weights=self.weights, use_depth=self.use_depth,
+            sh_warmup=self.sh_bands is not None, optimize_cameras="cam" in self.extras,
+            optimize_exposure="exp" in self.extras, remat=self.remat)
+
+    def _state(self) -> list:
+        return tree_leaves((self.params, self.opt_state, self.extras, self.extra_state))
+
+    def _rows(self, ex):
+        """The view's camera (with its pose correction) and exposure."""
+        idx = self._idx.reshape(1)
+        cam = self._camera_views
+        if "cam" in ex:
+            cam = apply_camera_delta(cam, ex["cam"].dr.index_select(0, idx)[0],
+                                     ex["cam"].dt.index_select(0, idx)[0])
+        gain = bias = None
+        if "exp" in ex:
+            gain = ex["exp"].gain.index_select(0, idx)[0]
+            bias = ex["exp"].bias.index_select(0, idx)[0]
+        return cam, gain, bias
+
+    def _structure_cameras(self) -> list:
+        return [self._rows(self.extras)[0]]
+
+    def _step_body(self, profiles, effects: bool = True):
+        dev, n_views = self.dev, self.n_views
+        l1_weight, ssim_weight, l2_weight, depth_weight = self.weights
+        p = tree_map(lambda a: a.detach().requires_grad_(True), self.params)
+        ex = {k: tree_map(lambda a: a.detach().requires_grad_(True), v)
+              for k, v in self.extras.items()}
+        cam, gain, bias = self._rows(ex)
+        loss, cand = view_loss(
+            p, cam, self._target, self.config, self.capacity, self.k_max, l1_weight=l1_weight,
+            ssim_weight=ssim_weight, l2_weight=l2_weight, depth_weight=depth_weight,
+            depth_target=self._dtarget, gain=gain, bias=bias, remat=self.remat,
+            structure=self.structures[0], profile=profiles[0], device=dev)
+        grads = loss_grads(loss, tree_leaves(p) + tree_leaves(ex))
+        n_p = len(tree_leaves(p))
+        with torch.no_grad():
+            p = tree_map(torch.detach, p)
+            ex = {k: tree_map(torch.detach, v) for k, v in ex.items()}
+            gp = tree_unflatten(p, grads[:n_p])
+            gex = tree_unflatten(ex, grads[n_p:])
+            if self.sh_bands is not None:
+                mask = (self.sh_bands <= self._sh_active).to(torch.float32)
+                gp = gp._replace(sh=gp.sh * mask[None, :, None])
+            gnorm = torch.sqrt(torch.sum(gp.means * gp.means, dim=0))
+            updates, opt_state = self.tx.update(gp, self.opt_state, p)
+            p = apply_updates(p, updates)
+            # Per-view sparsity: only the rendered view's row may move.
+            # Without this, Adam's decaying first moment would move every
+            # other view's row too.  Other rows keep their value and moments.
+            row = (torch.arange(n_views, device=dev) == self._idx).to(torch.float32)
+
+            def active_rows_only(new, old):
+                if new.ndim >= 1 and new.shape[0] == n_views:
+                    m = row.reshape((n_views,) + (1,) * (new.ndim - 1))
+                    return new * m + old * (1.0 - m)
+                return new  # scalars (the Adam step count)
+
+            new_ex, new_ex_state = {}, {}
+            for name in ex:
+                u, st = self.extra_txs[name].update(gex[name], self.extra_state[name], ex[name])
+                u = tree_map(lambda a: active_rows_only(a, torch.zeros_like(a)), u)
+                new_ex_state[name] = tree_map(active_rows_only, st, self.extra_state[name])
+                new_ex[name] = apply_updates(ex[name], u)
+            if effects:
+                self._commit(tree_leaves((p, opt_state, new_ex, new_ex_state)))
+            if not isinstance(loss, torch.Tensor):
+                loss = torch.full((), float(loss), dtype=torch.float32, device=dev)
+        return loss.detach(), cand, gnorm
+
+    def step(self, camera: torch.Tensor, target: torch.Tensor, depth_target, view: int,
+             sh_active: int):
+        """One step on view ``view``: the inputs refilled (``camera`` a
+        [CAMERA_FLOATS] tensor, ``target`` [H, W, 3], ``depth_target``
+        [H, W] or None), S, the profile, B.  Returns B's (loss, candidate
+        count, gradient norms), device tensors that the next step
+        overwrites."""
+        self._camera.copy_(camera)
+        self._target.copy_(target)
+        if self.use_depth:
+            self._dtarget.copy_(depth_target)
+        self._idx.fill_(view)
+        self._sh_active.fill_(sh_active)
+        return self._step(self._step_body)
+
+
+# ---------------------------------------------------------------------------
 # Scene fitting (training loop)
 # ---------------------------------------------------------------------------
 
@@ -993,6 +1392,7 @@ def fit(
     exposure: Optional[Exposure] = None,
     device=None,
     log_every: int = 0,
+    stats: Optional[dict] = None,
 ):
     """Fit splat parameters to target images by gradient descent on
     ``device`` (default: the card).
@@ -1018,6 +1418,13 @@ def fit(
     load_checkpoint's ``params``, ``step`` (as ``start_step``),
     ``opt_state``, ``camera_deltas`` and ``exposure`` back in; the extras'
     Adam moments are not checkpointed and warm-restart.
+
+    The step is the JAX fit's jitted ``step`` in compiled form
+    (FitStepGraphs): on the card two CUDA graphs a step, cached per
+    fit_step_key and the block profile, eager on a key's first visit,
+    captured on its second, replayed after that; on the CPU eager.  A
+    densify that changes the splat count drops the graphs, as the JAX jit
+    recompiles.  ``stats``, a dict, receives FitStepGraphs.report().
 
     Returns (params, losses: np.ndarray [steps]); when enabled, the fitted
     CameraDeltas and then the Exposure append in that order.
@@ -1062,53 +1469,10 @@ def fit(
             "warm-up schedule has nothing to do",
             RuntimeWarning,
         )
+    sh_bands = None
     if use_sh_warmup:
         sh_bands = torch.from_numpy(
             np.floor(np.sqrt(np.arange(params.sh.shape[1]))).astype(np.int32)).to(dev)
-
-    def step(p, ex, opt_state, ex_state, cam, target, dtarget, idx, sh_active):
-        p = tree_map(lambda a: a.detach().requires_grad_(True), p)
-        ex = {k: tree_map(lambda a: a.detach().requires_grad_(True), v) for k, v in ex.items()}
-        cam2 = apply_camera_delta(cam, ex["cam"].dr[idx], ex["cam"].dt[idx]) if "cam" in ex else cam
-        gain = ex["exp"].gain[idx] if "exp" in ex else None
-        bias = ex["exp"].bias[idx] if "exp" in ex else None
-        loss, cand = view_loss(
-            p, cam2, target, config, capacity, k_max, l1_weight=l1_weight,
-            ssim_weight=ssim_weight, l2_weight=l2_weight,
-            depth_weight=depth_weight, depth_target=dtarget,
-            gain=gain, bias=bias, remat=remat, device=dev)
-        grads = loss_grads(loss, tree_leaves(p) + tree_leaves(ex))
-        n_p = len(tree_leaves(p))
-        with torch.no_grad():
-            p = tree_map(torch.detach, p)
-            ex = {k: tree_map(torch.detach, v) for k, v in ex.items()}
-            gp = tree_unflatten(p, grads[:n_p])
-            gex = tree_unflatten(ex, grads[n_p:])
-            if use_sh_warmup:
-                mask = (sh_bands <= sh_active).to(torch.float32)
-                gp = gp._replace(sh=gp.sh * mask[None, :, None])
-            gnorm = torch.sqrt(torch.sum(gp.means * gp.means, dim=0))
-            updates, opt_state = tx.update(gp, opt_state, p)
-            p = apply_updates(p, updates)
-            # Per-view sparsity: only the rendered view's row may move.
-            # Without this, Adam's decaying first moment would move every
-            # other view's row too.  Other rows keep their value and moments.
-            row = (torch.arange(n_views, device=dev) == idx).to(torch.float32)
-
-            def active_rows_only(new, old):
-                if new.ndim >= 1 and new.shape[0] == n_views:
-                    m = row.reshape((n_views,) + (1,) * (new.ndim - 1))
-                    return new * m + old * (1.0 - m)
-                return new  # scalars (the Adam step count)
-
-            new_ex, new_ex_state = {}, {}
-            for name in ex:
-                u, s = txs[name].update(gex[name], ex_state[name], ex[name])
-                u = tree_map(lambda a: active_rows_only(a, torch.zeros_like(a)), u)
-                new_ex_state[name] = tree_map(active_rows_only, s, ex_state[name])
-                new_ex[name] = apply_updates(ex[name], u)
-        loss = float(loss.detach()) if isinstance(loss, torch.Tensor) else float(loss)
-        return p, new_ex, opt_state, new_ex_state, loss, cand, gnorm
 
     if densify_every:
         m = _np(params.means)
@@ -1118,33 +1482,41 @@ def fit(
         opt_state = tx.init(params)
     else:
         opt_state = tree_map(lambda a: a.to(dev), opt_state)
+    # The step, compiled as the JAX fit jits it: CUDA graphs on the card.
+    graphs = FitStepGraphs(
+        config, capacity, k_max, params=params, opt_state=opt_state, tx=tx, extras=extras,
+        extra_state=extra_state, extra_txs=txs, n_views=n_views,
+        image_shape=(config.screen_h, config.screen_w), l1_weight=l1_weight,
+        ssim_weight=ssim_weight, l2_weight=l2_weight, depth_weight=depth_weight,
+        use_depth=use_depth, sh_bands=sh_bands, remat=remat, device=dev)
+    cam_rows = torch.stack([camera_flat(c) for c in cams])
     losses = np.zeros(steps, np.float32)
     sat_warned = False
     gacc = torch.zeros(params.means.shape[-1], dtype=torch.float64, device=dev)
     gcnt = 0
     for i in range(start_step, steps):
         f = i % len(cams)
-        dtg = dtgts[f] if use_depth else None
         sh_active = i // sh_warmup_every if use_sh_warmup else 127
-        params, extras, opt_state, extra_state, loss, cand, gnorm = step(
-            params, extras, opt_state, extra_state, cams[f], tgts[f], dtg, f, sh_active)
+        loss, cand, gnorm = graphs.step(cam_rows[f], tgts[f], dtgts[f] if use_depth else None,
+                                        f, sh_active)
         losses[i] = float(loss)
+        cand = int(cand)
         gacc += gnorm.to(torch.float64)
         gcnt += 1
-        if not sat_warned and int(cand) > capacity:
+        if not sat_warned and cand > capacity:
             warnings.warn(
-                f"fit step {i}: {int(cand)} candidate pairs exceed the structure capacity "
+                f"fit step {i}: {cand} candidate pairs exceed the structure capacity "
                 f"({capacity}); frames render with a truncated pair list — raise `capacity`.",
                 RuntimeWarning,
             )
             sat_warned = True
         if densify_every and i < densify_until and (i + 1) % densify_every == 0:
-            n0 = params.means.shape[-1]
+            n0 = graphs.params.means.shape[-1]
             params = densify_and_prune(
-                params, (gacc / max(1, gcnt)).to(torch.float32),
+                graphs.params, (gacc / max(1, gcnt)).to(torch.float32),
                 scene_extent=scene_extent, seed=i, **(densify_args or {}),
             )
-            opt_state = tx.init(params)
+            graphs.load(params, tx.init(params))
             gacc = torch.zeros(params.means.shape[-1], dtype=torch.float64, device=dev)
             gcnt = 0
             if log_every:
@@ -1152,10 +1524,14 @@ def fit(
                       flush=True)
         if checkpoint_every and checkpoint_path and (
                 (i + 1) % checkpoint_every == 0 or i == steps - 1):
-            save_checkpoint(checkpoint_path, params, step=i + 1, opt_state=opt_state,
-                            camera_deltas=extras.get("cam"), exposure=extras.get("exp"))
+            save_checkpoint(checkpoint_path, graphs.params, step=i + 1,
+                            opt_state=graphs.opt_state, camera_deltas=graphs.extras.get("cam"),
+                            exposure=graphs.extras.get("exp"))
         if log_every and (i % log_every == 0 or i == steps - 1):
-            print(f"step {i:5d}  loss {float(loss):.6f}", flush=True)
+            print(f"step {i:5d}  loss {losses[i]:.6f}", flush=True)
+    if stats is not None:
+        stats.update(graphs.report())
+    params, extras = graphs.params, graphs.extras
     out = [params, losses]
     if optimize_cameras:
         out.append(extras["cam"])

@@ -92,6 +92,12 @@ def camera_views(flat: torch.Tensor) -> Dict[str, torch.Tensor]:
     return out
 
 
+def camera_flat(cam: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """camera_views' inverse: a camera dict of tensors as one
+    [CAMERA_FLOATS] float32 tensor on its device."""
+    return torch.cat([cam[k].reshape(-1).to(torch.float32) for k, _ in _CAMERA_FIELDS])
+
+
 def camera_tensors(camera_data: dict, device) -> Dict[str, torch.Tensor]:
     """Camera.camera_data() (NumPy) -> float32 tensors on ``device``, in
     one host-to-device copy."""
@@ -345,7 +351,7 @@ def run_sync_free(frame):
 
 
 def capture_frame(frame, device, *, pool=None, checked: bool = False,
-                  error_mode: str = "global"):
+                  error_mode: str = "global", warmup=None):
     """Capture ``frame()`` as a CUDA graph on ``device``, by PyTorch's
     recipe: (1) one eager frame under run_sync_free, unless ``checked``
     says the caller has run one; (2) a warm-up on a side stream, so that
@@ -356,6 +362,10 @@ def capture_frame(frame, device, *, pool=None, checked: bool = False,
     refuses a CUDA call that is unsafe during a capture from any thread of
     the process, "thread_local" only from this one.
 
+    The warm-up calls ``warmup()`` where one is given: for a frame with
+    side effects (a training step that writes its new state in place, or
+    runs a collective every rank must match), the same work without them.
+
     Returns (the graph, the captured call's outputs).  The outputs are
     static: each replay writes them anew.  A failed capture raises."""
     if not checked:
@@ -363,7 +373,7 @@ def capture_frame(frame, device, *, pool=None, checked: bool = False,
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
-        frame()
+        (frame if warmup is None else warmup)()
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, pool=pool, capture_error_mode=error_mode):
@@ -371,14 +381,14 @@ def capture_frame(frame, device, *, pool=None, checked: bool = False,
     return graph, outputs
 
 
-def run_graphed(owner, key, frame, error_mode: str = "global"):
+def run_graphed(owner, key, frame, error_mode: str = "global", warmup=None):
     """``frame()``, the frame at ``key`` of a renderer ``owner`` that keeps a
     graph cache (``device``, ``_graphs``: key -> (graph, outputs),
     ``_visited``, ``_pool``, ``last_method``): eager on the CPU; on the
     card eager under run_sync_free on the key's first visit, captured by
-    capture_frame (with ``error_mode``) into the owner's one pool and
-    replayed on its second, replayed after that.  Returns the frame's
-    outputs, static ones when replayed."""
+    capture_frame (with ``error_mode`` and ``warmup``) into the owner's one
+    pool and replayed on its second, replayed after that.  Returns the
+    frame's outputs, static ones when replayed."""
     if owner.device.type != "cuda":
         owner.last_method = "eager"
         return frame()
@@ -392,8 +402,9 @@ def run_graphed(owner, key, frame, error_mode: str = "global"):
     else:
         if owner._pool is None:
             owner._pool = torch.cuda.graph_pool_handle()
+        kw = {} if warmup is None else {"warmup": warmup}
         graph, outputs = capture_frame(frame, owner.device, pool=owner._pool, checked=True,
-                                       error_mode=error_mode)
+                                       error_mode=error_mode, **kw)
         owner._graphs[key] = (graph, outputs)
         owner.last_method = "capture"
     graph.replay()

@@ -25,9 +25,9 @@ Subcommands (the JAX tool's eleven):
               the projected N-card frame
   shardbal    the same for balanced bands (parallel.distributed.render_band)
   trainscale  a single-view fit step at (10k, 256²), (50k, 512²) and
-              (100k, 512²)
+              (100k, 512²), eager and graphed (diff.FitStepGraphs)
   dpstep      the data-parallel fit step (parallel.train.make_train_step_dp)
-              in a world-size-1 process group
+              in a world-size-1 process group, eager and graphed
 
 Method.  The JAX tool runs REPS salted reps of a body inside one
 ``lax.scan`` dispatch and takes the best of 3.  Here REPS calls of the body
@@ -42,7 +42,13 @@ blends other data.  "net" subtracts a graphed trivial body (the JAX tool's
 dispatch baseline).  A body that cannot be captured (it copies from the
 host or reads a count back) is listed as such by its caller and timed with
 CUDA events around REPS eager calls (``method: "events"``); a capturable
-body whose capture fails is a failed line, never an events line.  On the
+body whose capture fails is a failed line, never an events line.  The
+training steps (trainscale, dpstep) are timed whole, steady steps on the
+host clock, each step's loss read back as the fit reads it: the step
+graphed as diff.fit and fit_dp run it on the card (its two CUDA graphs a
+step, "cuda_graph" when every timed step replayed) beside its eager twin
+(EagerFitStep, EagerDPStep: the same bodies run eagerly, "eager"), with
+the device busy time and idle share of a traced pair of steps.  On the
 CPU (``--device cpu``) the REPS calls run eagerly on the host clock
 (``method: "eager"``, no device ms): a smoke test of the tool, not a
 device measurement.
@@ -72,7 +78,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from .. import bench
+from .. import bench, diff
 from ..config import RenderConfig
 from ..models.camera import orbit_cameras
 from ..models.scene import random_scene
@@ -85,8 +91,9 @@ from ..ops.geometry import as_u32_i64
 from ..ops.projection import project_splats
 from ..ops.raster import pack_pair_data, rasterize_tiles, tiles_to_image
 from ..ops.sorting import sort_pairs
+from ..parallel.train import DPStepGraphs
 from ..render import (
-    _band_rows_tensor, _frame_pairs, camera_tensors, capture_frame,
+    _band_rows_tensor, _frame_pairs, camera_flat, camera_tensors, capture_frame,
     render_frame_tensors, reorder_scene_by_tile_row, round_capacity, uniform_band_rows,
 )
 from ..utils.device import resolve_device
@@ -738,7 +745,6 @@ def trainscale_setup(n_splats: int, size: int, dev: torch.device) -> dict:
     orbit camera 0 rendered by Renderer.render as the target, the scene's
     own parameters, capacity round_capacity(16 n) and k_max = max(256,
     2 x the largest tile's pairs)."""
-    from .. import diff
     from ..render import Renderer
 
     scene = random_scene(n_splats, seed=3, device=dev)
@@ -752,8 +758,8 @@ def trainscale_setup(n_splats: int, size: int, dev: torch.device) -> dict:
     capacity = round_capacity(16 * n_splats, dev)
     structure = diff.build_structure(params, cd, config, capacity, device=dev)
     k_max = max(256, 2 * diff.max_tile_count(structure))
-    return dict(config=config, target=target, params=params, camera=cd, capacity=capacity,
-                k_max=k_max)
+    return dict(config=config, target=target, params=params, camera=cd,
+                camera_row=camera_flat(camera_tensors(cd, dev)), capacity=capacity, k_max=k_max)
 
 
 def _sync(dev: torch.device) -> None:
@@ -761,58 +767,143 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+class Eager:
+    """A diff.GraphedStep whose bodies run eagerly on the card, as the
+    port's training steps ran before they were graphed: the eager twin
+    that the graphed step is timed and held against."""
+
+    def _run(self, kind, key, body, warmup=None):
+        self._keys.add((kind, key))
+        self.last_method = "eager"
+        self.methods[kind]["eager"] += 1
+        return body()
+
+
+class EagerFitStep(Eager, diff.FitStepGraphs):
+    pass
+
+
+class EagerDPStep(Eager, DPStepGraphs):
+    pass
+
+
+def fit_step_pair(s: dict, dev: torch.device) -> dict:
+    """A trainscale row's step (diff.view_loss's 0.8 L1 + 0.2 (1 - SSIM),
+    diff.Adam(1e-3), one view) graphed (diff.FitStepGraphs) and eager
+    (EagerFitStep), each from the row's parameters."""
+    tx = diff.Adam(1e-3)
+    kw = dict(params=s["params"], opt_state=tx.init(s["params"]), tx=tx, extras={},
+              extra_state={}, extra_txs={}, n_views=1, image_shape=tuple(s["target"].shape[:2]),
+              l1_weight=0.8, ssim_weight=0.2, l2_weight=0.0, depth_weight=0.0, use_depth=False,
+              sh_bands=None, remat=None, device=dev)
+    return {name: cls(s["config"], s["capacity"], s["k_max"], **kw)
+            for name, cls in (("eager", EagerFitStep), ("graphed", diff.FitStepGraphs))}
+
+
+def timed_steps(dev: torch.device, run, steps: int, *, trace_steps: int = 2) -> dict:
+    """``run(i)`` (one training step that returns its loss tensor) ``steps``
+    times on the host clock, from a synchronise to one after the last
+    loss's readback; then, on the card, ``trace_steps`` more in a profiler
+    trace: device busy ms a step (every kernel and copy summed) and the
+    idle share of the timed steps."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        loss = run(i)
+    loss = float(loss)
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    busy = None
+    if dev.type == "cuda":
+        def traced():
+            for i in range(trace_steps):
+                float(run(steps + i))
+
+        b = bench.device_busy_ms(traced)
+        busy = None if b is None else b / trace_steps
+    return dict(ms_per_step=ms, loss=loss, device_busy_ms=busy,
+                idle_share=None if busy is None else max(0.0, 1.0 - busy / ms))
+
+
+def step_counts(dev: torch.device, warm_eager: int, warm_graphed: int, timed: int) -> tuple:
+    """(warm-up steps of the eager twin, of the graphed step, timed steps):
+    on the card enough for the eager twin to settle and for every key of
+    the graphed step to be captured; on the CPU, where both run eagerly
+    and the times mean nothing, 1, 1 and at most 2."""
+    if dev.type == "cuda":
+        return warm_eager, warm_graphed, timed
+    return 1, 1, min(timed, 2)
+
+
+def step_methods(step, before: dict) -> dict:
+    """How a GraphedStep's step graph ran since its counts were ``before``."""
+    after = step.methods["step"]
+    return {k: after[k] - before.get(k, 0) for k in after if after[k] - before.get(k, 0)}
+
+
+def method_of(ran: dict) -> str:
+    """A timed line's method: "cuda_graph" when every step replayed,
+    "eager" when every one ran eagerly, else the counts."""
+    if set(ran) == {"replay"}:
+        return "cuda_graph"
+    return "eager" if set(ran) == {"eager"} else "mixed " + json.dumps(ran)
+
+
 def cmd_trainscale(h: Harness, rows=TRAIN_ROWS) -> dict:
     """A single-view fit step (render_diff, 0.8 L1 + 0.2 (1 - SSIM),
-    diff.Adam(1e-3)) at growing splat counts and sizes: 2 warm-up steps, 8
-    timed, ms/step on the host clock after a synchronise (the step reads
-    the pair counts back, so it is not captured)."""
-    from .. import diff
-
+    diff.Adam(1e-3)) at growing splat counts and sizes, eager and graphed
+    side by side: the eager twin 2 warm-up steps, the graphed step 3 (its
+    key eager, captured, replayed), then 8 timed steps of each on the host
+    clock, each ending with the loss read back, and 2 traced ones (device
+    busy ms a step, idle share); on the CPU one warm-up step and 2 timed
+    each.  The graphed line's method is
+    "cuda_graph" only if all of its timed steps replayed."""
     out = []
     for n_splats, size in rows:
+        if h.dev.type == "cuda":
+            # memory_reserved then holds this row's steps, graphs and cache.
+            torch.cuda.empty_cache()
         s = trainscale_setup(n_splats, size, h.dev)
-        config, t, cd = s["config"], s["target"], s["camera"]
-        capacity, k_max = s["capacity"], s["k_max"]
-        tx = diff.Adam(1e-3)
+        pair = fit_step_pair(s, h.dev)
+        cam = s["camera_row"]
+        row = dict(splats=n_splats, size=size, k_max=s["k_max"], capacity=s["capacity"])
+        warm_eager, warm_graphed, timed = step_counts(h.dev, 2, 3, 8)
+        for name, warm in (("eager", warm_eager), ("graphed", warm_graphed)):
+            step = pair[name]
 
-        def step(p, o):
-            q = diff.tree_map(lambda a: a.detach().requires_grad_(True), p)
-            img, _ = diff.render_diff(q, cd, config, capacity, k_max, device=h.dev)
-            e = img[..., :3] - t
-            loss = 0.8 * torch.mean(torch.abs(e)) + 0.2 * (1.0 - diff.ssim(img[..., :3], t))
-            grads = diff.loss_grads(loss, diff.tree_leaves(q))
-            with torch.no_grad():
-                p = diff.tree_map(torch.detach, q)
-                upd, o = tx.update(diff.tree_unflatten(p, grads), o, p)
-                return diff.apply_updates(p, upd), o, loss.detach()
+            def run(i, step=step):
+                return step.step(cam, s["target"], None, 0, 0)[0]
 
-        p, o = s["params"], tx.init(s["params"])
-        for _ in range(2):
-            p, o, loss = step(p, o)
-        _sync(h.dev)
-        steps = 8
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            p, o, loss = step(p, o)
-        _sync(h.dev)
-        ms = (time.perf_counter() - t0) * 1e3 / steps
-        loss = float(loss)
-        _log(f"{n_splats} splats @ {size}^2: k_max={k_max} capacity={capacity} "
-             f"step={ms:.0f} ms loss={loss:.4f}")
-        out.append(dict(splats=n_splats, size=size, k_max=k_max, capacity=capacity,
-                        ms_per_step=ms, loss=loss))
-        h.lines.append(dict(name=f"train step {n_splats} @ {size}^2", ms_per_rep=ms,
-                            method="host clock", **out[-1]))
+            for i in range(warm):
+                run(i)
+            before = dict(step.methods["step"])
+            timing = timed_steps(h.dev, run, timed)
+            ran = step_methods(step, before)
+            rep = step.report()
+            row[name] = dict(timing, method=method_of(ran), step_methods=ran, keys=rep["keys"],
+                             captures=rep["step"].get("capture", 0),
+                             memory_reserved=rep.get("memory_reserved"))
+            h.lines.append(dict(name=f"train step {n_splats} @ {size}^2 {name}",
+                                ms_per_rep=timing["ms_per_step"], splats=n_splats, size=size,
+                                k_max=s["k_max"], capacity=s["capacity"], **row[name]))
+            _log(f"{n_splats} splats @ {size}^2 {name}: k_max={s['k_max']} "
+                 f"capacity={s['capacity']} step={timing['ms_per_step']:.1f} ms "
+                 f"({row[name]['method']}) loss={timing['loss']:.4f}")
+        row["loss"] = timing["loss"]
+        out.append(row)
+        del pair
     return dict(rows=out)
 
 
 def dpstep_rank(size: int, n_scene: int, n_init: int, steps: int) -> dict:
     """One rank of dpstep (importable by name, for parallel.launch.spawn):
-    the JAX tool's setup on this rank's device, 1 + 4 settle steps, then
-    ``steps`` timed on the host clock after a synchronise."""
-    from .. import diff
+    the JAX tool's setup on this rank's device; the eager twin of
+    make_train_step_dp's step (EagerDPStep) 1 + 4 settle steps and the
+    graphed step (DPStepGraphs) 9 (each of the 4 views' keys eager, then
+    captured), then ``steps`` timed of each on the host clock (each loss
+    read back) and 2 traced; on the CPU 1 settle step each and at most 2
+    timed."""
     from ..parallel.distributed import make_mesh
-    from ..parallel.train import make_train_step_dp, view_batch
+    from ..parallel.train import view_batch
     from ..render import Renderer
 
     mesh = make_mesh(axis="dp")
@@ -826,32 +917,45 @@ def dpstep_rank(size: int, n_scene: int, n_init: int, steps: int) -> dict:
     params = diff.random_init(n_init, scene.bounds_min, scene.bounds_max, seed=0, scale=0.05,
                               device=dev)
     tx = diff.Adam(5e-3)
-    step, _ = make_train_step_dp(config, 65536, 512, tx, mesh)
     batches = [view_batch(cd[i:i + 1], targets[i:i + 1], dev) for i in range(4)]
-    p, o, loss = step(params, tx.init(params), *batches[0])
-    for i in range(4):
-        p, o, loss = step(p, o, *batches[i])
-    _sync(dev)
-    t0 = time.perf_counter()
-    for i in range(steps):
-        p, o, loss = step(p, o, *batches[i % 4])
-    _sync(dev)
-    return dict(ms_per_step=(time.perf_counter() - t0) * 1e3 / steps, loss=float(loss),
-                backend=torch.distributed.get_backend())
+    out = dict(backend=torch.distributed.get_backend())
+    warm_eager, warm_graphed, steps = step_counts(dev, 5, 9, steps)
+    for name, cls, warm in (("eager", EagerDPStep, warm_eager),
+                            ("graphed", DPStepGraphs, warm_graphed)):
+        step = cls(config, 65536, 512, tx, mesh)
+        state = [params, tx.init(params)]
+
+        def run(i, step=step, state=state):
+            state[0], state[1], loss = step(*state, *batches[i % 4])
+            return loss
+
+        for i in range(warm):
+            run(i)
+        before = dict(step.methods["step"])
+        timing = timed_steps(dev, run, steps)
+        ran = step_methods(step, before)
+        rep = step.report()
+        out[name] = dict(timing, method=method_of(ran), step_methods=ran, keys=rep["keys"],
+                         captures=rep["step"].get("capture", 0),
+                         memory_reserved=rep.get("memory_reserved"))
+    return out
 
 
 def cmd_dpstep(h: Harness, size: int = 256, n_scene: int = 3000, n_init: int = 2000,
                steps: int = 16) -> dict:
     """The data-parallel fit step of a 1-rank group (NCCL on the card, gloo
     on the CPU), through parallel.launch.spawn: the exact per-rank program
-    of an N-card data-parallel fit, its all-reduce a loopback."""
+    of an N-card data-parallel fit, its all-reduce a loopback; eager and
+    graphed side by side."""
     from ..parallel.launch import spawn
 
     res = spawn(dpstep_rank, 1, h.dev.type, size, n_scene, n_init, steps)[0]
-    _log(f"dp train step (group of 1, {res['backend']}): {res['ms_per_step']:.1f} ms/step, "
-         f"loss {res['loss']:.4f}")
-    h.lines.append(dict(name="dp train step (group of 1)", ms_per_rep=res["ms_per_step"],
-                        method="host clock", **res))
+    for name in ("eager", "graphed"):
+        r = res[name]
+        _log(f"dp train step (group of 1, {res['backend']}) {name}: {r['ms_per_step']:.1f} "
+             f"ms/step ({r['method']}), loss {r['loss']:.4f}")
+        h.lines.append(dict(name=f"dp train step (group of 1) {name}",
+                            ms_per_rep=r["ms_per_step"], backend=res["backend"], **r))
     return dict(dpstep=res)
 
 

@@ -24,8 +24,9 @@ from cudagaussianrenderer_torch.render import (
 )
 
 from torch_port_cases import (
-    card_failed_sharded_capture_case, card_fit_dp_case, card_graphed_renderer_case,
-    card_sharded_case, mesh_frames_case,
+    card_failed_sharded_capture_case, card_fit_dp_case, card_graphed_dp_case,
+    card_graphed_renderer_case, card_sharded_case, dp_graph_ranks_case, fit_step_pair,
+    mesh_frames_case, anisotropic, rendered_views, run_step_pair,
     COMPACT_CASES, COMPACT_CG, EDGE_CORNER_CASES, compact_counts, cull_run, edge_corner_keys, widen,
 )
 
@@ -686,6 +687,78 @@ def test_fit_dp_on_card_matches_the_hand_steps(dev):
     rel, got, want = launch.spawn(card_fit_dp_case, 1, "cuda", 64, 200, 2)[0]
     assert len(rel) == 5 and max(rel) <= DIFF_GRAD_RTOL, rel
     np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+# Graphed training steps against their eager twins: the same kernels on the
+# same inputs in the same order, pair gradients summed in float64, so the
+# graphed steps are expected bit-equal (a tolerance of 0).
+GRAPHED_STEP_TOL = 0.0
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_graphed_fit_steps_equal_eager_steps(dev, remat):
+    """Ten steps of diff.FitStepGraphs (tx_3dgs, L1 + D-SSIM, pose and
+    exposure refinement, the SH warm-up) at 128x128 against its eager twin
+    from the same state: a key's first step eager, its second captured,
+    later ones replayed; loss, candidates, gradient norms and every state
+    leaf (parameters, optimizer state, extras) within GRAPHED_STEP_TOL."""
+    from cudagaussianrenderer_torch import diff
+
+    scene, cams, targets = rendered_views(300, 3, 128, 2, sh_degree=2)
+    init = anisotropic(diff.random_init(300, scene.bounds_min, scene.bounds_max, seed=1,
+                                        sh_degree=2, device="cpu"))
+    config = pt.RenderConfig(screen_size=128)
+    graphed, eager, inputs = fit_step_pair(init, [c.camera_data() for c in cams], targets,
+                                           config, 1 << 16, 256, dev, remat=remat)
+    records, diffs = run_step_pair(graphed, eager, inputs, 10)
+    methods = [r[0] for r in records]
+    assert methods[0] == "eager" and methods.count("capture") in (1, 2), methods
+    assert methods.count("replay") >= 6, methods
+    for _, lg, le, cg, ce, dn in records:
+        assert abs(lg - le) <= GRAPHED_STEP_TOL and cg == ce and dn <= GRAPHED_STEP_TOL
+    assert max(diffs) <= GRAPHED_STEP_TOL, diffs
+    report = graphed.report()
+    assert report["structure"] == {"eager": 1, "capture": 1, "replay": 8}
+    assert report["memory_reserved"] > 0
+
+
+def test_graphed_dp_steps_equal_eager_steps(dev):
+    """Ten steps of parallel.train.DPStepGraphs (two views a step, the
+    gradient all-reduce inside graph B) of a world-size-1 NCCL group against
+    its eager twin: losses and every state leaf within GRAPHED_STEP_TOL."""
+    from cudagaussianrenderer_torch.parallel import launch
+
+    records, diffs, report = launch.spawn(card_graphed_dp_case, 1, "cuda", 10)[0]
+    methods = [r[0] for r in records]
+    assert methods[0] == "eager" and methods.count("capture") in (1, 2), methods
+    assert methods.count("replay") >= 6, methods
+    for _, lg, le in records:
+        assert abs(lg - le) <= GRAPHED_STEP_TOL
+    assert max(diffs) <= GRAPHED_STEP_TOL, diffs
+    assert report["structure"].get("replay", 0) >= 7
+
+
+def test_graphed_dp_steps_across_cards(dev):
+    """Up to four cards, one NCCL rank each: DPStepGraphs against its eager
+    twin for 6 steps, each rank keyed on its own views' block profiles
+    (other keys at other steps): losses and every state leaf within
+    GRAPHED_STEP_TOL on every rank, the replicas bit-identical.  Needs two
+    cards or more."""
+    from cudagaussianrenderer_torch.parallel import launch
+
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        pytest.skip("needs two CUDA devices or more: NCCL takes one card a rank")
+    ranks = launch.spawn(dp_graph_ranks_case, n, "cuda", 6)
+    for r in ranks:
+        (got, got_l), (want, want_l) = r["graphed"], r["eager"]
+        assert max(abs(a - b) for a, b in zip(got_l, want_l)) <= GRAPHED_STEP_TOL
+        for a, b in zip(got, want):
+            assert float(np.abs(a - b).max(initial=0.0)) <= GRAPHED_STEP_TOL
+        assert "replay" in r["graphed_methods"], r["graphed_methods"]
+        for a, b in zip(r["graphed"][0], ranks[0]["graphed"][0]):
+            assert a.tobytes() == b.tobytes()
+    assert len({str(r["graphed_profiles"]) for r in ranks}) > 1
 
 
 def test_bench_refuses_more_ranks_than_cards(dev):

@@ -9,6 +9,7 @@ multi-device tests (run by parallel.launch.spawn, which starts each rank
 from a fresh import of this module).  Imports neither jax nor the JAX
 package."""
 
+import contextlib
 import dataclasses
 import re
 import socket
@@ -348,7 +349,7 @@ def dp_step(dp, device):
                                  l2_weight=1.0)
     cams, tgts = view_batch(dp["cams"], dp["targets"], device)
     new, _, loss = step(params, tx.init(params), cams, tgts)
-    return [x.cpu().numpy() for x in diff.tree_leaves(new)], loss
+    return [x.cpu().numpy() for x in diff.tree_leaves(new)], float(loss)
 
 
 def gloo_cases(n, dp, cycle):
@@ -471,7 +472,7 @@ def mesh_frames_case(n):
     step, _ = make_train_step_dp(RenderConfig(screen_size=32), 2048, 128, tx, make_mesh(axis="dp"))
     cams_b, tgts_b = view_batch([c.camera_data() for c in cams], targets, dev)
     stepped, _, loss = step(params, tx.init(params), cams_b, tgts_b)
-    checks["dp_loss_finite"] = bool(np.isfinite(loss))
+    checks["dp_loss_finite"] = bool(np.isfinite(float(loss)))
     return (checks, uniform.cpu().numpy(), balanced.cpu().numpy(),
             [x.cpu().numpy() for x in diff.tree_leaves(stepped)])
 
@@ -827,3 +828,264 @@ def check_edge_frame(name, img, again=None):
     else:
         np.testing.assert_array_equal(img, again)  # deterministic despite the ties
         assert img[..., 3].max() == 255
+
+
+# ---------------------------------------------------------------------------
+# The graphed training steps (diff.GraphedStep) on the graph cache's path
+# over CPU tensors
+# ---------------------------------------------------------------------------
+
+
+class StepStandInGraph:
+    """A CUDA graph's stand-in on the CPU for a step body with side effects:
+    the capture runs the warm-up (capture_frame's side-stream call, which
+    writes nothing) for the static outputs and runs nothing else; each
+    replay runs the body, which writes its state, and copies its outputs
+    into the static ones."""
+
+    def __init__(self, frame, warmup):
+        self.frame = frame
+        self.outputs = tuple(t.clone() for t in (warmup or frame)())
+
+    def replay(self):
+        for dst, src in zip(self.outputs, self.frame()):
+            dst.copy_(src)
+
+
+class graph_cache_on_cpu:
+    """Within this context every diff.GraphedStep takes the graph cache's
+    path over its CPU tensors: run_sync_free runs the body, capture_frame
+    makes a StepStandInGraph (appended to ``captures`` with its error mode
+    and whether a warm-up was given)."""
+
+    def __init__(self):
+        self.captures = []
+
+    def __enter__(self):
+        from cudagaussianrenderer_torch import diff
+        from cudagaussianrenderer_torch import render as prender
+
+        init = diff.GraphedStep.__init__
+
+        def cuda_init(step, *args, **kwargs):
+            init(step, *args, **kwargs)
+            step.device = torch.device("cuda")
+
+        def capture_frame(frame, device, *, pool=None, checked=False, error_mode="global",
+                          warmup=None):
+            assert checked and pool is not None
+            graph = StepStandInGraph(frame, warmup)
+            self.captures.append((error_mode, warmup is not None))
+            return graph, graph.outputs
+
+        self.saved = [(prender, "run_sync_free"), (prender, "capture_frame"),
+                      (torch.cuda, "graph_pool_handle"), (diff.GraphedStep, "__init__")]
+        self.saved = [(o, n, getattr(o, n)) for o, n in self.saved]
+        prender.run_sync_free = lambda frame: frame()
+        prender.capture_frame = capture_frame
+        torch.cuda.graph_pool_handle = lambda: object()
+        diff.GraphedStep.__init__ = cuda_init
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in self.saved:
+            setattr(obj, name, value)
+        return False
+
+
+def fit_graph_case():
+    """The inputs of the graph-cache fit tests: 40 anisotropic SH-1 splats
+    fitted to two 32x32 orbit views of a 200-splat scene, capacity 4096,
+    k_max 64."""
+    from cudagaussianrenderer_torch import RenderConfig, diff
+
+    scene, cams, targets = rendered_views(200, 3, 32, 2, sh_degree=1)
+    init = anisotropic(diff.random_init(40, scene.bounds_min, scene.bounds_max, seed=1,
+                                        sh_degree=1, device="cpu"))
+    return init, [c.camera_data() for c in cams], targets, RenderConfig(screen_size=32)
+
+
+def fit_dp_graph_case(steps):
+    """One rank of a world-size-1 gloo group: ``steps`` fit_dp steps (Adam,
+    L1 + D-SSIM) of fit_graph_case's splats on its two views, eager, then
+    the same on the graph cache's path (graph_cache_on_cpu), and one
+    make_train_step_dp step whose first call takes other parameters.
+    Returns NumPy leaves, losses, the cache path's report, its captures
+    and the methods of its steps."""
+    from cudagaussianrenderer_torch import diff
+    from cudagaussianrenderer_torch.parallel import fit_dp, make_mesh, make_train_step_dp
+    from cudagaussianrenderer_torch.parallel.train import view_batch
+
+    torch.set_num_threads(1)
+    init, cd, targets, config = fit_graph_case()
+    kw = dict(capacity=4096, k_max=64, steps=steps)
+    out = {}
+    fitted, losses = fit_dp(init, cd, targets, config, mesh=make_mesh(axis="dp"), **kw)
+    out["eager"] = ([x.numpy() for x in diff.tree_leaves(fitted)], losses)
+    with graph_cache_on_cpu() as g:
+        fitted, losses = fit_dp(init, cd, targets, config, mesh=make_mesh(axis="dp"), **kw)
+        out["graphed"] = ([x.numpy() for x in diff.tree_leaves(fitted)], losses)
+        out["captures"] = g.captures
+        tx = diff.Adam(5e-3)
+        step, _ = make_train_step_dp(config, 4096, 64, tx, make_mesh(axis="dp"))
+        batch = view_batch(cd[:1], targets[:1])
+        methods, states = [], []
+        p, o = init, tx.init(init)
+        for _ in range(3):
+            p, o, loss = step(p, o, *batch)
+            methods.append(step.last_method)
+            states.append([x.numpy().copy() for x in diff.tree_leaves((p, o))])
+        out["methods"] = methods
+        out["report"] = step.report()
+    # The same three steps eagerly.
+    step, _ = make_train_step_dp(config, 4096, 64, tx, make_mesh(axis="dp"))
+    p, o = init, tx.init(init)
+    want = []
+    for _ in range(3):
+        p, o, _ = step(p, o, *batch)
+        want.append([x.numpy().copy() for x in diff.tree_leaves((p, o))])
+    out["steps"] = (states, want)
+    return out
+
+
+def fit_step_pair(params, cameras_data, targets, config, capacity, k_max, device, *,
+                  remat=None, refine=True, sh_warmup=True):
+    """diff.fit's step on ``device`` as diff.FitStepGraphs and as its eager
+    twin (tools.measure.EagerFitStep), from the same state: tx_3dgs, the
+    3DGS L1 + D-SSIM loss, with ``refine`` pose and exposure refinement,
+    with ``sh_warmup`` the SH warm-up mask.  Returns (graphed, eager, the
+    per-view inputs: camera rows and targets on the device)."""
+    from cudagaussianrenderer_torch import diff
+    from cudagaussianrenderer_torch.render import camera_flat
+    from cudagaussianrenderer_torch.tools.measure import EagerFitStep
+
+    dev = torch.device(device)
+    n = len(cameras_data)
+    params = diff.tree_map(lambda a: a.detach().to(dev), params)
+    tx = diff.tx_3dgs(8.0, 100)
+    extras, txs = {}, {}
+    if refine:
+        extras = {"cam": diff.zero_camera_deltas(n, device=dev),
+                  "exp": diff.identity_exposure(n, device=dev)}
+        txs = {"cam": diff.Adam(1e-4), "exp": diff.Adam(1e-3)}
+    sh_bands = None
+    if sh_warmup and params.sh is not None:
+        sh_bands = torch.from_numpy(
+            np.floor(np.sqrt(np.arange(params.sh.shape[1]))).astype(np.int32)).to(dev)
+    kw = dict(params=params, opt_state=tx.init(params), tx=tx, extras=extras,
+              extra_state={k: txs[k].init(v) for k, v in extras.items()}, extra_txs=txs,
+              n_views=n, image_shape=(config.screen_h, config.screen_w), l1_weight=0.8,
+              ssim_weight=0.2, l2_weight=0.0, depth_weight=0.0, use_depth=False,
+              sh_bands=sh_bands, remat=remat, device=dev)
+    steps = [cls(config, capacity, k_max, **kw) for cls in (diff.FitStepGraphs, EagerFitStep)]
+    rows = torch.stack([camera_flat(diff._camera(c, dev)) for c in cameras_data])
+    tgts = [diff.target_tensor(t, dev) for t in targets]
+    return steps[0], steps[1], (rows, tgts)
+
+
+def run_step_pair(graphed, eager, inputs, steps):
+    """``steps`` steps of both (views round-robin, the SH degree growing
+    every 4 steps).  Returns (each step's (graphed method, graphed loss,
+    eager loss, graphed candidates, eager candidates, max |diff| of the
+    gradient norms)), and each state leaf's max |diff| at the end."""
+    rows, tgts = inputs
+    records = []
+    for i in range(steps):
+        f = i % len(tgts)
+        out = [s.step(rows[f], tgts[f], None, f, i // 4) for s in (graphed, eager)]
+        (lg, cg, ng), (le, ce, ne) = out
+        records.append((graphed.last_method, float(lg), float(le), int(cg), int(ce),
+                        float((ng - ne).abs().max())))
+    diffs = [float((a - b).abs().max()) if a.numel() else 0.0
+             for a, b in zip(graphed._state(), eager._state())]
+    return records, diffs
+
+
+def card_graphed_dp_case(steps, size=64, n_splats=200):
+    """One rank of a world-size-1 NCCL group, on the card: ``steps`` steps of
+    parallel.train.DPStepGraphs (Adam, L1 + D-SSIM, two views a step) beside
+    its eager twin (tools.measure.EagerDPStep), from the same state.
+    Returns each step's (method, graphed loss, eager loss), each state
+    leaf's max |diff| at the end, and the graphed step's report."""
+    from cudagaussianrenderer_torch import RenderConfig, diff
+    from cudagaussianrenderer_torch.parallel import make_mesh
+    from cudagaussianrenderer_torch.parallel.train import DPStepGraphs, view_batch
+    from cudagaussianrenderer_torch.tools.measure import EagerDPStep
+
+    mesh = make_mesh(axis="dp")
+    dev = mesh.device
+    scene, cams, targets = rendered_views(n_splats, 3, size, 4)
+    cd = [c.camera_data() for c in cams]
+    init = anisotropic(diff.random_init(n_splats, scene.bounds_min, scene.bounds_max, seed=1,
+                                        device=dev))
+    config = RenderConfig(screen_size=size)
+    tx = diff.Adam(5e-3)
+    pair = [cls(config, 1 << 15, 256, tx, mesh) for cls in (DPStepGraphs, EagerDPStep)]
+    batches = [view_batch(cd[i:i + 2], targets[i:i + 2], dev) for i in (0, 2)]
+    state = [(init, tx.init(init)), (init, tx.init(init))]
+    records = []
+    for i in range(steps):
+        losses = []
+        for j, step in enumerate(pair):
+            p, o, loss = step(*state[j], *batches[i % 2])
+            state[j] = (p, o)
+            losses.append(float(loss))
+        records.append((pair[0].last_method, *losses))
+    diffs = [float((a - b).abs().max()) for a, b in zip(pair[0]._state(), pair[1]._state())]
+    return records, diffs, pair[0].report()
+
+
+def dp_graph_ranks_case(steps):
+    """One rank of an n-rank group (gloo on the CPU, NCCL on the card):
+    ``steps`` make_train_step_dp steps (Adam, L1 + D-SSIM, a view a rank,
+    two batches of n views in turn) eager and graphed from the same
+    parameters: on the CPU through the graph cache's path
+    (graph_cache_on_cpu) against the eager step, on the card as CUDA
+    graphs against the eager twin (tools.measure.EagerDPStep).  The ranks'
+    views differ, and so do their block profiles and keys: each rank's
+    step must still run one all-reduce a step.  Returns both runs' NumPy
+    leaves and losses, the graphed run's methods and its step keys'
+    profiles."""
+    from cudagaussianrenderer_torch import RenderConfig, diff
+    from cudagaussianrenderer_torch.models.camera import orbit_cameras
+    from cudagaussianrenderer_torch.models.scene import (
+        random_scene, random_scene_arrays, scene_from_arrays,
+    )
+    from cudagaussianrenderer_torch.parallel import make_mesh
+    from cudagaussianrenderer_torch.parallel.train import DPStepGraphs, view_batch
+    from cudagaussianrenderer_torch.render import Renderer
+    from cudagaussianrenderer_torch.tools.measure import EagerDPStep
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(axis="dp")
+    dev, n = mesh.device, mesh.shape["dp"]
+    config = RenderConfig(screen_size=64)
+    cams = orbit_cameras((-4,) * 3, (4,) * 3, 2 * n)
+    cd = [c.camera_data() for c in cams]
+    r = Renderer(random_scene(1500, seed=5, device="cpu"), config, device="cpu")
+    targets = [r.render(c)[..., :3].astype(np.float32) / 255.0 for c in cams]
+    # 1,200 of the 1,600 splats fitted in a cluster off the centre: of 4
+    # orbit views, views 0 and 2 reach 5 chunks of 128 pairs, 1 and 3 6-7.
+    a = random_scene_arrays(1600, seed=5, min_scale=0.01, max_scale=0.1)
+    a["means"][:1200] = a["means"][:1200] * 0.3 + np.array([3.0, 0.0, 0.0], np.float32)
+    init = anisotropic(diff.from_scene(scene_from_arrays(
+        a["means"], a["scales"], a["quats_xyzw"], a["opacities"], a["colors"], None, 0,
+        device=dev)))
+    batches = [view_batch(cd[i:i + n], targets[i:i + n], dev) for i in (0, n)]
+    cpu = dev.type == "cpu"
+    out = {}
+    for name in ("eager", "graphed"):
+        graphed = name == "graphed"
+        cls = DPStepGraphs if graphed or cpu else EagerDPStep
+        with graph_cache_on_cpu() if graphed and cpu else contextlib.nullcontext():
+            tx = diff.Adam(5e-3)
+            step = cls(config, 1 << 15, 2048, tx, mesh)
+            p, o, losses, methods = init, tx.init(init), [], []
+            for i in range(steps):
+                p, o, loss = step(p, o, *batches[i % 2])
+                losses.append(float(loss))
+                methods.append(step.last_method)
+            out[name] = ([x.cpu().numpy().copy() for x in diff.tree_leaves((p, o))], losses)
+            out[name + "_methods"] = methods
+            out[name + "_profiles"] = sorted(k[1][1] for k in step._visited if k[0] == "step")
+    return out
