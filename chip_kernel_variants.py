@@ -54,14 +54,14 @@ K4_VARIANTS = {
     "committed": [],
     "8 pixels a thread": [
         ("tile_size % 4 == 0", "tile_size % 8 == 0"),
-        ("pick<4, true>(dev) : pick<4, false>(dev)",
-         "pick<8, true>(dev) : pick<8, false>(dev)"),
+        ("pick<4, true>(dev, looped) : pick<4, false>(dev, looped)",
+         "pick<8, true>(dev, looped) : pick<8, false>(dev, looped)"),
         ("(wide ? 4 : 1)", "(wide ? 8 : 1)"),
     ],
     "2 pixels a thread": [
         ("tile_size % 4 == 0", "tile_size % 2 == 0"),
-        ("pick<4, true>(dev) : pick<4, false>(dev)",
-         "pick<2, true>(dev) : pick<2, false>(dev)"),
+        ("pick<4, true>(dev, looped) : pick<4, false>(dev, looped)",
+         "pick<2, true>(dev, looped) : pick<2, false>(dev, looped)"),
         ("(wide ? 4 : 1)", "(wide ? 2 : 1)"),
     ],
     "pair loop unrolled 2": [("#pragma unroll 4\n      for (int k = lo;",
@@ -96,7 +96,7 @@ K4_VARIANTS = {
     "no ex2 (timing only)": [("? ex2_approx(fminf(m, co.y))", "? fminf(m, co.y)")],
     # 2^x on the FMA pipe for the first of a thread's four pixels.
     "polynomial ex2 for 1 pixel of 4": [
-        ("template <int kPx, bool kGaussian, bool kDevOffset>\n__global__",
+        ("template <int kPx, bool kGaussian, bool kDevOffset, bool kLooped>\n__device__",
          "__device__ __forceinline__ float ex2_poly(float x) {\n"
          "  x = fmaxf(x, -126.0f);\n"
          "  const float t = x + 12582912.0f;\n"
@@ -109,7 +109,7 @@ K4_VARIANTS = {
          "  p = fmaf(p, f, 1.0f);\n"
          "  return __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));\n"
          "}\n\n"
-         "template <int kPx, bool kGaussian, bool kDevOffset>\n__global__"),
+         "template <int kPx, bool kGaussian, bool kDevOffset, bool kLooped>\n__device__"),
         ("? ex2_approx(fminf(m, co.y))",
          "? (p < 1 ? ex2_poly(fminf(m, co.y)) : ex2_approx(fminf(m, co.y)))"),
     ],

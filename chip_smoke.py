@@ -12,7 +12,12 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
   2. kernel parity at the main path's shapes: each of K1-K4 against its
      plain PyTorch version on the same inputs (K1-K3 exact, K4 within
      K4_LSB_BOUND output levels), with per-kernel times; K3 and K4 also
-     on the huge-splat 1024x1024 scene, parity and time;
+     on the huge-splat 1024x1024 scene, parity and time; K4 at the larger
+     tiles of K4_TILE_SIZES (36x36 to 128x128) on the main path's scene and
+     camera, each within K4_TILE_LSB of its plain version, with device time
+     and bound, and a frame of 64x64 tiles at 1024x1024 through
+     Renderer.render (eager, captured and replayed, byte-equal) against
+     golden.py;
   3. golden scenes: the non-banded scenes of tools/tpu_selfcheck.py
      through the port, each against the port's golden.py oracle, and its
      balanced-bands case (two bands of parallel.render_band, summed);
@@ -158,6 +163,16 @@ SFU_PER_CLOCK_PER_SM = 16
 # same pairs in the same order and differ by the kernel's ex2.approx of a
 # conic that carries log2(e), and by fused multiply-adds.
 K4_LSB_BOUND = 4
+# K4 at tiles above the main path's 16x16 (phase 2): (tile edge, screen
+# edge) on phase 4's scene and camera 0; each within K4_TILE_LSB output
+# levels of its plain version.  36 is no multiple of 4 (a pixel a thread,
+# 1,296 groups a tile); 128 has more groups than a block has threads, so
+# each thread loops over several.
+K4_TILE_SIZES = ((36, 1008), (48, 1008), (64, 1024), (128, 1024))
+K4_TILE_LSB = 1
+# The 64x64-tile frame of phase 2 through Renderer.render against golden.py:
+# a scene golden.py renders in seconds (~27,800 candidate pairs at 1024x1024).
+TILE_FRAME_SPLATS = 20_000
 # Cycles the card spins ahead of a traced run of launches (torch.cuda._sleep,
 # traced as spin_kernel): about 20 ms, enough for the host to queue 50
 # wrapper calls under the profiler.
@@ -308,6 +323,86 @@ def bits_equal(a, b) -> bool:
     a = a.contiguous().view(torch.int32) if a.dtype == torch.float32 else a
     b = b.contiguous().view(torch.int32) if b.dtype == torch.float32 else b
     return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def k4_tile_sizes(dev, scene, cam, sfu_rate):
+    """Phase 2's K4 at the tile sizes of K4_TILE_SIZES: each against its
+    plain version on ``scene`` (phase 4's, padded) from camera tensors
+    ``cam``, at the capacity Renderer would bucket its candidates into,
+    with its device time and bound; then one frame of 64x64 tiles at
+    1024x1024 through Renderer.render (a warm-up frame, then its settled
+    key's eager, captured and replayed frames, byte-equal) against
+    golden.py.  Returns a record a tile size."""
+    import numpy as np
+
+    from cudagaussianrenderer_torch import RenderConfig, Renderer, orbit_cameras, random_scene
+    from cudagaussianrenderer_torch.golden import golden_render, scene_to_numpy
+    from cudagaussianrenderer_torch.ops import raster
+    from cudagaussianrenderer_torch.ops.binning import emit_columns
+    from cudagaussianrenderer_torch.ops.projection import project_splats
+    from cudagaussianrenderer_torch.render import _frame_pairs, _splat_colors, round_capacity
+
+    records = []
+    for ts, size in K4_TILE_SIZES:
+        cfg = RenderConfig(screen_size=size, tile_size=ts)
+        clip = project_splats(scene.means, scene.scales, scene.quats, cam, cfg,
+                              opacities=scene.opacities)
+        _, incl = emit_columns(clip, _splat_colors(scene, cam), scene.opacities, cfg)
+        total = int(incl[-1])
+        cap = round_capacity(Renderer._bucket(total), dev)
+        _, attrs, starts, counts = _frame_pairs(scene, cam, cfg, cap)
+        pair_data = raster.pack_pair_data(attrs, cfg.raster_chunk)
+
+        def call():
+            return raster.rasterize_tiles(pair_data, starts, counts, cfg)
+
+        tiles = call()
+        stats = {}
+        plain = raster._raster_torch(pair_data, starts, counts, cfg, cfg.total_tiles, 0, stats)
+        lsb = int((raster.tiles_to_image(tiles, cfg).int()
+                   - raster.tiles_to_image(plain, cfg).int()).abs().max())
+        evals = stats["pairs_blended"] * cfg.pixels_per_tile
+        nbytes = (4 * 3 * min(total, cap) + 8 * cfg.total_tiles
+                  + 16 * cfg.total_tiles * cfg.pixels_per_tile)
+        floors = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                  "operations": max(K4_OPS_PER_EVAL * evals / F32_OPS_PER_S,
+                                    evals / sfu_rate) * 1e3}
+        bound_by = max(floors, key=floors.get)
+        rec = dict(tile_size=ts, screen=size, tiles=cfg.total_tiles, pairs=min(total, cap),
+                   pairs_blended=stats["pairs_blended"], evaluations=evals, max_lsb=lsb,
+                   max_abs_err=float((tiles - plain).abs().max()), device_ms=trace_ms(call, 20),
+                   bound_ms=floors[bound_by], bound_by=bound_by)
+        records.append(rec)
+        log(f"  K4 at {ts}x{ts} tiles, {size}x{size}: {rec['tiles']} tiles, "
+            f"{rec['pairs_blended']} of {rec['pairs']} pairs blended = {evals} evaluations, "
+            f"max diff {lsb} LSB (bound {K4_TILE_LSB}), device {rec['device_ms']} ms, "
+            f"bound {rec['bound_ms']:.4f} ms ({bound_by})")
+        require(lsb <= K4_TILE_LSB,
+                f"K4 at {ts}x{ts} tiles differs by {lsb} LSB from its plain version")
+
+    fscene = random_scene(TILE_FRAME_SPLATS, seed=0, min_scale=0.002, max_scale=0.053,
+                          extent=4.0, sh_degree=3, device=dev)
+    fcfg = RenderConfig(screen_size=1024, tile_size=64)
+    fcam = orbit_cameras(fscene.bounds_min, fscene.bounds_max, 8)[0]
+    r = Renderer(fscene, fcfg, device=dev)
+    r.render(fcam)  # warm-up: settles the capacity
+    before = raster.rasterize_tiles.launches
+    frames, methods = [], []
+    for _ in range(3):
+        frames.append(r.render(fcam))
+        methods.append(r.last_method)
+    launched = raster.rasterize_tiles.launches - before
+    log(f"  Renderer.render at 64x64 tiles, 1024x1024, {TILE_FRAME_SPLATS} splats SH 3: "
+        f"{methods}, key {r._key()}, {r.last_candidates} candidates, K4 launched {launched}")
+    require(methods == ["eager", "capture", "replay"],
+            f"the 64x64-tile frames ran {methods}, not eager, capture, replay")
+    require(launched > 0, "the 64x64-tile frames did not launch K4")
+    for i in (1, 2):
+        require(np.array_equal(frames[i], frames[0]),
+                f"the {methods[i]} 64x64-tile frame differs from the eager one")
+    check("64x64 tiles vs golden.py", frames[0],
+          golden_render(scene_to_numpy(fscene), fcam.camera_data(), fcfg))
+    return records
 
 
 def edge_corner_parity(segmented):
@@ -1943,6 +2038,8 @@ def main() -> int:
         f"{device_ms(lambda: raster.rasterize_tiles(pair_data, starts, counts, config), 20)}")
     if hlsb > K4_LSB_BOUND:
         raise AssertionError(f"K4 raster differs by {hlsb} LSB on the huge-splat scene")
+    k4_tiles = k4_tile_sizes(dev, s, cam, sfu_rate)
+    log(f"  K4 tile sizes [{card}]: {json.dumps(k4_tiles)}")
 
     # ---- 3. golden scenes --------------------------------------------------
     # The non-banded cases of cudagaussianrenderer_torch/tools/selfcheck.py

@@ -37,7 +37,11 @@
 //   * batches of kBatch pairs are double-buffered: the raw words of batch
 //     i + 1 travel global -> shared with cp.async while batch i blends, and
 //     each thread decodes the words it fetched itself, so a batch costs one
-//     barrier, which also carries the vote.
+//     barrier, which also carries the vote;
+//   * a tile of more pixel groups than a block has threads (above 64x64
+//     pixels at four a group, 32x32 at one) takes 1,024 threads or fewer,
+//     each looping over several groups whose state waits in `out` between
+//     batches (raster_tile's kLooped), still one block and one vote a tile.
 // The pairs blended are the JAX kernel's: batches are the kBatch-aligned
 // windows of the list clipped to [start, start + count), raster_chunk is a
 // multiple of kBatch, and the block stops only where a whole raster_chunk
@@ -48,6 +52,7 @@
 namespace {
 
 constexpr int kBatch = 128;  // pairs per staged batch; divides raster_chunk
+constexpr int kMaxThreads = 1024;  // the card's limit for one block
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -79,16 +84,30 @@ __device__ __forceinline__ float ex2_approx(float x) {
 // chosen on the device, as the JAX kernel's SMEM scalar), else from the
 // launch argument; a template argument, so the flat frame's kernel has no
 // extra load.
-template <int kPx, bool kGaussian, bool kDevOffset>
-__global__ void raster_kernel(const uint32_t* __restrict__ pairs,
-                              long long stride,
-                              const int* __restrict__ starts,
-                              const int* __restrict__ counts, int tiles_x,
-                              int tile_size, int row_offset,
-                              const int* __restrict__ row_offset_dev,
-                              float pix_to_clip_x, float pix_to_clip_y,
-                              int chunk, float eps, int background,
-                              float4* __restrict__ out) {
+//
+// kLooped: the tile has more groups of kPx pixels than a block may have
+// threads (a 64-pixel edge is the largest whose groups all fit, at four
+// pixels a thread).  Thread tid then takes groups tid, tid + blockDim.x,
+// ..., each kPx pixels of one tile row with its own row and first column,
+// and a group's r, g, b and T wait in the tile's own rows of `out` between
+// batches: a tile of 128x128 pixels holds 64 K floats of that state, more
+// than a block's registers or shared memory.  Per batch a group loads its
+// state, blends the batch exactly as a resident group does, stores it, and
+// ORs its T > eps into the thread's vote, so a tile still stops only where
+// all of its pixels are opaque: the JAX kernel's rule, whatever the size.
+// The pixels are the same, so is every operation on them: a pixel comes out
+// of both forms bit for bit alike.
+#define GSR_RASTER_ARGS                                                                 \
+  const uint32_t *__restrict__ pairs, long long stride, const int *__restrict__ starts, \
+      const int *__restrict__ counts, int tiles_x, int tile_size, int row_offset,        \
+      const int *__restrict__ row_offset_dev, float pix_to_clip_x, float pix_to_clip_y,  \
+      int chunk, float eps, int background, float4 *__restrict__ out
+#define GSR_RASTER_PASS                                                                  \
+  pairs, stride, starts, counts, tiles_x, tile_size, row_offset, row_offset_dev,         \
+      pix_to_clip_x, pix_to_clip_y, chunk, eps, background, out
+
+template <int kPx, bool kGaussian, bool kDevOffset, bool kLooped>
+__device__ __forceinline__ void raster_tile(GSR_RASTER_ARGS) {
   __shared__ uint32_t s_raw[3][kBatch];
   // {cx, cy, na, nb2}, {nc, opacity, red, green}, blue.  Under the Gaussian
   // falloff na, nb2 and nc carry log2(e) and the opacity is its log2.
@@ -99,22 +118,36 @@ __global__ void raster_kernel(const uint32_t* __restrict__ pairs,
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
-  const int npix = nthreads * kPx;
+  const int npix = tile_size * tile_size;
+  const int groups = npix / kPx;
   const int start = starts[tile];
   const int count = counts[tile];
   const int tx = tile % tiles_x;
   const int ty = tile / tiles_x + (kDevOffset ? *row_offset_dev : row_offset);
-  // The thread's pixels: kPx neighbours on one row of the tile.
-  const int pix0 = tid * kPx;
-  const int col0 = tx * tile_size + pix0 % tile_size;
-  const float pcy =
-      static_cast<float>(ty * tile_size + pix0 / tile_size) * pix_to_clip_y - 1.0f;
-  float pcx[kPx], r[kPx], g[kPx], b[kPx], trans[kPx];
+  float4* const tile_out = out + static_cast<long long>(tile) * npix;
+  // One group of pixels: kPx neighbours on one row of the tile.
+  float pcy, pcx[kPx], r[kPx], g[kPx], b[kPx], trans[kPx];
+  const auto place = [&](int group) {
+    const int pix0 = group * kPx;
+    const int col0 = tx * tile_size + pix0 % tile_size;
+    pcy = static_cast<float>(ty * tile_size + pix0 / tile_size) * pix_to_clip_y - 1.0f;
 #pragma unroll
-  for (int p = 0; p < kPx; ++p) {
-    pcx[p] = static_cast<float>(col0 + p) * pix_to_clip_x - 1.0f;
-    r[p] = g[p] = b[p] = 0.0f;
-    trans[p] = 1.0f;
+    for (int p = 0; p < kPx; ++p)
+      pcx[p] = static_cast<float>(col0 + p) * pix_to_clip_x - 1.0f;
+  };
+  if constexpr (kLooped) {
+    for (int group = tid; group < groups; group += nthreads) {
+#pragma unroll
+      for (int p = 0; p < kPx; ++p)
+        tile_out[group * kPx + p] = make_float4(0.0f, 0.0f, 0.0f, 1.0f);
+    }
+  } else {
+    place(tid);
+#pragma unroll
+    for (int p = 0; p < kPx; ++p) {
+      r[p] = g[p] = b[p] = 0.0f;
+      trans[p] = 1.0f;
+    }
   }
 
   const float center_inv = static_cast<float>(2.0 / 65535.0);
@@ -140,7 +173,37 @@ __global__ void raster_kernel(const uint32_t* __restrict__ pairs,
       }
       cp_async_commit();
     };
+    // The group's pixels over the batch's pairs [lo, hi), front to back.
+    const auto blend = [&](int buf, int lo, int hi) {
+#pragma unroll 4
+      for (int k = lo; k < hi; ++k) {
+        const float4 ge = s_geo[buf][k];
+        const float4 co = s_col[buf][k];
+        const float blue = s_blue[buf][k];
+        const float dy = pcy - ge.y;
+        const float t1 = ge.w * dy;
+        // Gaussian: co.y is log2(opacity), added into the exponent here, so
+        // alpha = 2^min(m, log2 opacity) needs no multiply per pixel.
+        const float t2 = kGaussian ? fmaf(co.x * dy, dy, co.y) : (co.x * dy) * dy;
+#pragma unroll
+        for (int p = 0; p < kPx; ++p) {
+          const float dx = pcx[p] - ge.x;
+          const float m = fmaf(fmaf(ge.z, dx, t1), dx, t2);
+          const float alpha = kGaussian
+                                  ? ex2_approx(fminf(m, co.y))
+                                  : co.y * __saturatef(fmaf(m, epan_scale, 1.0f));
+          const float w = trans[p] * alpha;
+          r[p] = fmaf(w, co.z, r[p]);
+          g[p] = fmaf(w, co.w, g[p]);
+          b[p] = fmaf(w, blue, b[p]);
+          trans[p] = fmaf(-trans[p], alpha, trans[p]);
+        }
+      }
+    };
 
+    // Looped: whether one of the thread's pixels had T > eps after the
+    // last batch it blended (the vote's first turn cannot end the tile).
+    bool looped_alive = false;
     int b0 = start / kBatch * kBatch;
     fetch(b0);
     for (int it = 0;; ++it) {
@@ -173,36 +236,37 @@ __global__ void raster_kernel(const uint32_t* __restrict__ pairs,
       // The batch's one barrier: it publishes this decode, ends the reads
       // of the buffer the next decode overwrites, and carries the vote on
       // everything blended so far.
-      bool alive = false;
+      bool alive = looped_alive;
+      if constexpr (!kLooped) {
 #pragma unroll
-      for (int p = 0; p < kPx; ++p) alive |= trans[p] > eps;
+        for (int p = 0; p < kPx; ++p) alive |= trans[p] > eps;
+      }
       const int any_alive = __syncthreads_or(alive);
       // A whole raster_chunk has ended where this batch begins one.
       if (it > 0 && b0 % chunk == 0 && !any_alive) break;
 
-#pragma unroll 4
-      for (int k = lo; k < hi; ++k) {
-        const float4 ge = s_geo[buf][k];
-        const float4 co = s_col[buf][k];
-        const float blue = s_blue[buf][k];
-        const float dy = pcy - ge.y;
-        const float t1 = ge.w * dy;
-        // Gaussian: co.y is log2(opacity), added into the exponent here, so
-        // alpha = 2^min(m, log2 opacity) needs no multiply per pixel.
-        const float t2 = kGaussian ? fmaf(co.x * dy, dy, co.y) : (co.x * dy) * dy;
+      if constexpr (kLooped) {
+        looped_alive = false;
+        for (int group = tid; group < groups; group += nthreads) {
+          float4* const state = tile_out + group * kPx;
+          place(group);
 #pragma unroll
-        for (int p = 0; p < kPx; ++p) {
-          const float dx = pcx[p] - ge.x;
-          const float m = fmaf(fmaf(ge.z, dx, t1), dx, t2);
-          const float alpha = kGaussian
-                                  ? ex2_approx(fminf(m, co.y))
-                                  : co.y * __saturatef(fmaf(m, epan_scale, 1.0f));
-          const float w = trans[p] * alpha;
-          r[p] = fmaf(w, co.z, r[p]);
-          g[p] = fmaf(w, co.w, g[p]);
-          b[p] = fmaf(w, blue, b[p]);
-          trans[p] = fmaf(-trans[p], alpha, trans[p]);
+          for (int p = 0; p < kPx; ++p) {
+            const float4 v = state[p];
+            r[p] = v.x;
+            g[p] = v.y;
+            b[p] = v.z;
+            trans[p] = v.w;
+          }
+          blend(buf, lo, hi);
+#pragma unroll
+          for (int p = 0; p < kPx; ++p) {
+            state[p] = make_float4(r[p], g[p], b[p], trans[p]);
+            looped_alive |= trans[p] > eps;
+          }
         }
+      } else {
+        blend(buf, lo, hi);
       }
       if (next >= end) break;
       b0 = next;
@@ -211,14 +275,43 @@ __global__ void raster_kernel(const uint32_t* __restrict__ pairs,
   }
 
   const float covered = count > 0 ? 1.0f : 0.0f;
-  float4* dst = out + static_cast<long long>(tile) * npix + pix0;
+  if constexpr (kLooped) {
+    // The state's w is T, which is channel 3 only under a background.  Each
+    // thread rewrites its own groups, which it stored last.
+    if (!background) {
+      float* const w = reinterpret_cast<float*>(tile_out) + 3;
+      for (int group = tid; group < groups; group += nthreads) {
 #pragma unroll
-  for (int p = 0; p < kPx; ++p)
-    dst[p] = make_float4(r[p], g[p], b[p], background ? trans[p] : covered);
+        for (int p = 0; p < kPx; ++p) w[4 * (group * kPx + p)] = covered;
+      }
+    }
+  } else {
+    float4* dst = tile_out + tid * kPx;
+#pragma unroll
+    for (int p = 0; p < kPx; ++p)
+      dst[p] = make_float4(r[p], g[p], b[p], background ? trans[p] : covered);
+  }
 }
 
+// A tile whose groups all fit in one block: a thread a group, in registers.
+template <int kPx, bool kGaussian, bool kDevOffset>
+__global__ void raster_kernel(GSR_RASTER_ARGS) {
+  raster_tile<kPx, kGaussian, kDevOffset, false>(GSR_RASTER_PASS);
+}
+
+// A larger tile: kMaxThreads threads at most, looping over the groups.
+template <int kPx, bool kGaussian, bool kDevOffset>
+__global__ void __launch_bounds__(kMaxThreads) raster_looped_kernel(GSR_RASTER_ARGS) {
+  raster_tile<kPx, kGaussian, kDevOffset, true>(GSR_RASTER_PASS);
+}
+
+using RasterKernel = void (*)(GSR_RASTER_ARGS);
+
 template <int kPx, bool kGaussian>
-auto pick(bool dev_offset) {
+RasterKernel pick(bool dev_offset, bool looped) {
+  if (looped)
+    return dev_offset ? raster_looped_kernel<kPx, kGaussian, true>
+                      : raster_looped_kernel<kPx, kGaussian, false>;
   return dev_offset ? raster_kernel<kPx, kGaussian, true> : raster_kernel<kPx, kGaussian, false>;
 }
 
@@ -232,14 +325,19 @@ GSR_EXPORT int gsr_raster(const void* pairs, long long stride,
                           float pix_to_clip_y, int chunk, float eps,
                           int gaussian, int background, void* out,
                           void* stream) {
-  // Four pixels of one row per thread need a tile edge that 4 divides.
-  if (chunk % kBatch) return static_cast<int>(cudaErrorInvalidValue);
+  if (chunk % kBatch || tile_size < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // Four pixels of one row per group need a tile edge that 4 divides.
   const bool wide = tile_size % 4 == 0;
+  const int groups = tile_size * tile_size / (wide ? 4 : 1);
+  // Groups a thread: one while they all fit in a block, else as few as do,
+  // spread evenly over the threads.
+  const int per_thread = (groups + kMaxThreads - 1) / kMaxThreads;
+  const int threads = (groups + per_thread - 1) / per_thread;
+  const bool looped = per_thread > 1;
   const bool dev = row_offset_dev != nullptr;
-  auto kernel = wide ? (gaussian ? pick<4, true>(dev) : pick<4, false>(dev))
-                     : (gaussian ? pick<1, true>(dev) : pick<1, false>(dev));
-  kernel<<<num_tiles, tile_size * tile_size / (wide ? 4 : 1), 0,
-           static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = wide ? (gaussian ? pick<4, true>(dev, looped) : pick<4, false>(dev, looped))
+                     : (gaussian ? pick<1, true>(dev, looped) : pick<1, false>(dev, looped));
+  kernel<<<num_tiles, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(pairs), stride,
       static_cast<const int*>(starts), static_cast<const int*>(counts),
       tiles_x, tile_size, row_offset, static_cast<const int*>(row_offset_dev),

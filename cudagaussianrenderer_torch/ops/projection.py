@@ -48,9 +48,23 @@ class SplatClipData(NamedTuple):
     con_b: torch.Tensor
     con_c: torch.Tensor
 
+    # Stacked views, as the JAX package's, for tests and tools (not for the
+    # hot path).
+    @property
+    def clip_xy(self):
+        return torch.stack([self.cx, self.cy], dim=-1)
+
     @property
     def clip_z(self):
         return self.z
+
+    @property
+    def ellipse(self):
+        return torch.stack([self.cos_t, self.sin_t, self.e0, self.e1], dim=-1)
+
+    @property
+    def conic(self):
+        return torch.stack([self.con_a, self.con_b, self.con_c], dim=-1)
 
 
 def project_splats(

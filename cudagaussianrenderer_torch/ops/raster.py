@@ -8,7 +8,11 @@ that shape, fed by the sorted, packed attribute words the sort carried
 with the keys (no gather):
 
   * one block per tile, four neighbouring pixels of a tile row per thread
-    (one where 4 does not divide the tile edge); the block stages the
+    (one where 4 does not divide the tile edge); a tile of more such
+    groups than a block's 1,024 threads (an edge above 64, or above 32
+    where 4 does not divide it) gives each thread several groups, their
+    state kept in the output between batches, so every tile size the
+    config accepts renders; the block stages the
     tile's [start, start + count) segment 128 pairs at a time in shared
     memory, decoded once per pair, the next batch in flight while this one
     blends, and every pixel blends them in order;
@@ -42,8 +46,6 @@ ROW_RGBA = 2                # 0xRRGGBBAA
 PAIR_ROWS = 4
 
 CENTER_INV_SCALE = 2.0 / 65535.0
-# Largest tile edge the kernel takes (1024 pixels a block).
-MAX_TILE_SIZE = 32
 
 
 def pack_pair_data(sorted_attrs, chunk: int) -> torch.Tensor:
@@ -163,8 +165,6 @@ def rasterize_tiles(
     t = num_tiles if num_tiles is not None else config.total_tiles
     on_device = isinstance(tile_row_offset, torch.Tensor)
     row_offset = tile_row_offset if on_device else int(tile_row_offset or 0)
-    if config.tile_size > MAX_TILE_SIZE:
-        raise ValueError(f"tile_size above {MAX_TILE_SIZE} is not supported")
     if cb.dispatch_device(pair_data) == "cpu":
         return _raster_torch(pair_data, starts, counts, config, t, row_offset)
     dev = pair_data.device

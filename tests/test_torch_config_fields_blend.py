@@ -1,0 +1,13 @@
+"""RenderConfig fields away from their defaults, blend cases: the port's
+frame against the JAX package's (tests/config_field_cases.py)."""
+
+import pytest
+
+from config_field_cases import BLEND_CASES, check_config_frame
+from torch_port_cases import one_torch_thread  # noqa: F401 (an autouse fixture)
+
+
+@pytest.mark.parametrize("name,cfg_kw,scene_kw,shows", BLEND_CASES,
+                         ids=[c[0] for c in BLEND_CASES])
+def test_config_frame_matches_jax(name, cfg_kw, scene_kw, shows):
+    check_config_frame(name, cfg_kw, scene_kw, shows)

@@ -245,7 +245,27 @@ RASTER_CASES = [
     ("deep-list", dict(screen_size=1024), 0, (192, 9, HUGE_KW), 524288),
     ("deep-list-chunk256", dict(screen_size=1024, raster_chunk=256, background=(0.0, 0.0, 0.0)),
      0, (768, 9, HUGE_KW), 2097152),
+    # Larger tiles, each a block: 36x36 (no multiple of 4: a pixel a thread,
+    # 1,296 > 1,024 groups), 48x48 and 64x64 (a group a thread), 128x128 and
+    # a 256x256 screen as one tile (several groups a thread, their state in
+    # the output between batches); deep lists, where one vote ends a tile of
+    # many groups; a band of them from row 1.
+    ("tile36", dict(screen_size=144, tile_size=36), 0, SMALL, 8192),
+    ("tile48-epanechnikov", dict(screen_size=192, tile_size=48, falloff="epanechnikov"), 0,
+     SMALL, 8192),
+    ("tile64", dict(screen_size=256, tile_size=64), 0, SMALL, 8192),
+    ("tile128-background", dict(screen_size=256, tile_size=128, background=(0.2, 0.4, 0.6)), 0,
+     SMALL, 8192),
+    ("tile256", dict(screen_size=256, tile_size=256), 0, SMALL, 8192),
+    ("tile128-deep-list", dict(screen_size=1024, tile_size=128), 0, (192, 9, HUGE_KW), 524288),
+    ("tile36-deep-list", dict(screen_size=1008, tile_size=36), 0, (192, 9, HUGE_KW), 524288),
+    ("tile128-row-offset", dict(screen_size=512, tile_size=128, background=(1.0, 1.0, 1.0)), 1,
+     SMALL, 8192),
 ]
+# The tile sizes against the plain version within one level: every case but
+# the 16x16 defaults of other settings and the older deep lists, which keep
+# K4_LSB_BOUND.
+K4_TILE_LSB = 1
 
 
 @pytest.mark.parametrize("name,cfg_kw,row_offset,scene_args,capacity", RASTER_CASES,
@@ -268,9 +288,10 @@ def test_raster_matches_plain(dev, name, cfg_kw, row_offset, scene_args, capacit
     want = raster._raster_torch(*args, rows * cfg.tiles_x, row_offset, stats)
     a = raster.tiles_to_image(got, cfg).int()
     b = raster.tiles_to_image(want, cfg).int()
-    assert int((a - b).abs().max()) <= K4_LSB_BOUND
+    bound = K4_TILE_LSB if name.startswith(("tile", "gaussian")) else K4_LSB_BOUND
+    assert int((a - b).abs().max()) <= bound
     assert int(b[..., :3].max()) > 0
-    if name.startswith("deep-list"):
+    if "deep-list" in name:
         assert stats["pairs_blended"] < int(counts[sl].sum())
 
 
@@ -432,6 +453,60 @@ def test_frame_on_card_matches_golden_through_the_kernels(dev):
     want = golden_render(scene_to_numpy(scene), cam.camera_data(), cfg)
     diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
     assert (diff > 8).any(axis=-1).mean() <= 0.02
+
+
+TILE_FRAME_CASES = [
+    ("tile36", dict(screen_size=144, tile_size=36)),
+    ("tile48", dict(screen_size=192, tile_size=48)),
+    ("tile64", dict(screen_size=256, tile_size=64)),
+    ("tile128", dict(screen_size=256, tile_size=128)),
+    ("tile64-banded", dict(screen_size=256, tile_size=64, sort_bands=2)),
+]
+
+
+@pytest.mark.parametrize("name,cfg_kw", TILE_FRAME_CASES, ids=[c[0] for c in TILE_FRAME_CASES])
+def test_renderer_at_tile_size_on_card(dev, name, cfg_kw):
+    """Renderer.render at a tile size above 32x32 on the card, three frames
+    at one key (eager, captured, replayed), byte-equal to each other and to
+    the CPU's frame within the image rule, the first through K4, and within
+    the image rule of golden.py."""
+    from torch_port_cases import TILE_SIZE_CAPACITY, TILE_SIZE_SPLATS, image_close
+
+    scene = pt.random_scene(TILE_SIZE_SPLATS, seed=2, device=dev)
+    cfg = pt.RenderConfig(capacity=TILE_SIZE_CAPACITY, **cfg_kw)
+    cam = pt.Camera(aspect=cfg.aspect).framed(scene.bounds_min, scene.bounds_max)
+    r = pt.Renderer(scene, cfg)
+    before = raster.rasterize_tiles.launches
+    frames, methods = [], []
+    for _ in range(3):
+        frames.append(r.render(cam))
+        methods.append(r.last_method)
+    assert methods == ["eager", "capture", "replay"]
+    assert raster.rasterize_tiles.launches > before
+    for i in (1, 2):
+        np.testing.assert_array_equal(frames[i], frames[0], err_msg=methods[i])
+    assert frames[0][..., 3].max() == 255
+    cpu = pt.Renderer(scene.to("cpu"), cfg, device="cpu").render(cam)
+    image_close(frames[0], cpu, msg=f"{name} card vs CPU")
+    image_close(frames[0], golden_render(scene_to_numpy(scene), cam.camera_data(), cfg),
+                msg=f"{name} vs golden")
+
+
+@pytest.mark.parametrize("cfg_kw", [dict(screen_size=256, tile_size=64, balanced_bands=True),
+                                    dict(screen_size=144, tile_size=36)],
+                         ids=["tile64-balanced", "tile36"])
+def test_distributed_renderer_at_tile_size_on_card(dev, cfg_kw):
+    """DistributedRenderer in a world-size-1 NCCL group at a tile size above
+    32x32 (K4 reads the band's first row from device memory when the bands
+    are balanced): eager, captured and replayed frames byte-equal to
+    Renderer.render's."""
+    from cudagaussianrenderer_torch.parallel import launch
+    from torch_port_cases import tile_size_sharded_case
+
+    frames, methods, want = launch.spawn(tile_size_sharded_case, 1, "cuda", cfg_kw, 3)[0]
+    assert methods == ["eager", "capture", "replay"]
+    for got, method in zip(frames, methods):
+        np.testing.assert_array_equal(got, want, err_msg=method)
 
 
 def test_scene_ops_on_card_match_cpu(dev):

@@ -74,6 +74,27 @@ PROJ_CASES = [
 ]
 
 
+def test_clip_data_stacked_views_match(scene_pair):
+    """SplatClipData's clip_xy, clip_z, ellipse and conic, stacked in the
+    JAX order: exactly the JAX properties on the JAX fields carried across,
+    and within f32 tolerance on the port's own projection."""
+    j, p, cam = scene_pair
+    cfg = dict(screen_size=128)
+    cd = cam.camera_data()
+    want = jx_project(j.means, j.scales, j.quats, cd, jx.RenderConfig(**cfg),
+                      opacities=j.opacities)
+    carried = clip_to_torch(want)
+    own = pt_project(p.means, p.scales, p.quats, camera_tensors(cd, "cpu"),
+                     pt.RenderConfig(**cfg), opacities=p.opacities)
+    for view, width in (("clip_xy", 2), ("clip_z", None), ("ellipse", 4), ("conic", 3)):
+        w = np.asarray(getattr(want, view))
+        n = want.cx.shape[0]
+        assert w.shape == ((n,) if width is None else (n, width))
+        np.testing.assert_array_equal(getattr(carried, view).numpy(), w, err_msg=view)
+        np.testing.assert_allclose(getattr(own, view).numpy(), w, rtol=F32_RTOL, atol=F32_ATOL,
+                                   err_msg=view)
+
+
 @pytest.mark.parametrize("name,kw,with_opacity", PROJ_CASES, ids=[c[0] for c in PROJ_CASES])
 def test_projection_matches(scene_pair, name, kw, with_opacity):
     j, p, cam = scene_pair

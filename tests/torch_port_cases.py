@@ -761,6 +761,34 @@ def scene_swap_case():
                 padded=(r.scene.padded_count, fresh.scene.padded_count))
 
 
+# Tiles above 32x32 pixels: the selfcheck's scale at a fixed capacity that
+# each frame fits, so that every frame of a renderer runs at one key.
+TILE_SIZE_SPLATS, TILE_SIZE_CAPACITY = 300, 16384
+
+
+def tile_size_sharded_case(cfg_kw, frames):
+    """One rank of a group (gloo on the CPU, NCCL on the card): a
+    DistributedRenderer over TILE_SIZE_SPLATS splats (seed 2) under
+    ``RenderConfig(**cfg_kw)`` at TILE_SIZE_CAPACITY renders the framed
+    camera ``frames`` times (on the card: eager, capture, replay), beside
+    Renderer.render of the same camera on the rank's device.  Returns (the
+    frames, their methods, the Renderer's frame), NumPy."""
+    from cudagaussianrenderer_torch import Camera, RenderConfig, Renderer, random_scene
+    from cudagaussianrenderer_torch.parallel import DistributedRenderer, make_mesh
+
+    torch.set_num_threads(1)
+    mesh = make_mesh()
+    scene = random_scene(TILE_SIZE_SPLATS, seed=2, device=mesh.device)
+    cfg = RenderConfig(capacity=TILE_SIZE_CAPACITY, **cfg_kw)
+    cam = Camera(aspect=cfg.aspect).framed(scene.bounds_min, scene.bounds_max)
+    r = DistributedRenderer(scene, cfg, mesh=mesh)
+    got, methods = [], []
+    for _ in range(frames):
+        got.append(r.render(cam))
+        methods.append(r.last_method)
+    return got, methods, Renderer(scene, cfg, device=mesh.device).render(cam)
+
+
 # The scenes of tests/test_edge_cases.py (:21, :41, :66, :87), for either
 # package, at one fixed capacity that each fits (the JAX tests start from the
 # adaptive capacity; a fixed one renders the same frame with one compile).
