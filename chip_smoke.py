@@ -119,6 +119,17 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
      and bandsort's G=16 frame (K5-K8, the segmented K1); then
      tools/selfcheck.py.  Its numbers go to ``phase 14 numbers [card]:``
      lines of the log.
+ 15. the graft entry (cudagaussianrenderer_torch.graft_entry, the JAX
+     repository's __graft_entry__.py): entry()'s frame eager under the sync
+     debug mode "error", captured as a CUDA graph and replayed byte-equal,
+     K1-K4 launched once each by the eager frame, the warm-up and the
+     capture, the frame against the CPU's and, with room for every
+     candidate, against golden.py (the image rule); ms a frame
+     eager and replayed, and a traced replay's device busy time; then
+     dryrun_multichip over NCCL at the visible card count, every check
+     passing with K1-K4 launched on rank 0 (K1-K3 in the training step),
+     its seconds by check.  Its numbers go to a ``phase 15 numbers
+     [card]:`` line.
 
 Phases 3 and 6 take their scenes from tools/selfcheck.py's case list.
 
@@ -1817,6 +1828,117 @@ def measure_harness(dev, card, goldens=None):
         + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
 
 
+# Phase 15: frames a timed pass of the entry's frame (host clock, best of 3).
+ENTRY_FRAMES = 20
+
+
+def graft_entry_phase(dev, card):
+    """Phase 15: the graft entry (cudagaussianrenderer_torch.graft_entry,
+    the JAX repository's __graft_entry__.py).  entry()'s frame (4,096
+    splats SH 2, 256x256) through graft_entry.capture_entry: once eagerly
+    under the sync debug mode "error", then captured as a CUDA graph and
+    replayed, byte-equal, with the counts of K1-K4 set to 0 just before and
+    read just after (each 3: the eager frame, the capture's warm-up and the
+    capture); the frame against the same function on the CPU (the kernels'
+    plain versions) and, with room for every candidate (the entry's list
+    saturates, as the JAX entry's does), against golden.py, each by the
+    image rule; ms a frame,
+    eager and replayed (host clock, best of 3 passes of ENTRY_FRAMES
+    frames), and the device busy time of a traced pass of replays, each of
+    K1-K4 once a frame.  Then dryrun_multichip at the visible card count
+    over NCCL: its five checks (the 2-D mesh batch only on an even count of
+    4 or more), seconds and K1-K4 launches of each on rank 0.  Its numbers
+    go to a ``phase 15 numbers [card]:`` line."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cudagaussianrenderer_torch import RenderConfig, graft_entry
+    from cudagaussianrenderer_torch.golden import golden_render, scene_to_numpy
+    from cudagaussianrenderer_torch.render import render_frame_tensors
+
+    counted = graft_entry.KERNELS
+    fn, args = graft_entry.entry()
+    for k in counted:
+        k.launches = 0
+    eager, graph, replayed = graft_entry.capture_entry(fn, args)
+    launches = {k.__name__: k.launches for k in counted}
+    log(f"  entry frame {tuple(eager.shape)}: eager under the sync debug mode, captured and "
+        f"replayed byte-equal; launches {launches}")
+    require(all(n == 3 for n in launches.values()),
+            f"the entry's eager frame, warm-up and capture did not launch K1-K4 once each: "
+            f"{launches}")
+    # The JAX entry's list saturates (its capacity is capacity_factor 8 slots
+    # a splat): the frame is held against the same function on the CPU, the
+    # plain versions of K1-K4, and the same frame with room for every
+    # candidate against golden.py.
+    scene, cam = args
+    cpu_fn, cpu_args = graft_entry.entry("cpu")
+    check("entry frame vs its plain version", eager.cpu().numpy(), cpu_fn(*cpu_args).numpy())
+    config = RenderConfig(screen_size=256)
+    _, aux = render_frame_tensors(*cpu_args, config, config.tile_capacity(scene.count))
+    candidates, entry_pairs = int(aux["num_candidates"]), int(aux["num_pairs"])
+    full, aux = render_frame_tensors(scene, cam, config, -(-candidates // 1024) * 1024)
+    require(int(aux["num_pairs"]) == candidates == int(aux["num_candidates"]),
+            f"the roomy entry frame holds {int(aux['num_pairs'])} of {candidates} pairs")
+    log(f"  entry list: {candidates} candidates, {entry_pairs} pairs kept at capacity "
+        f"{config.tile_capacity(scene.count)}")
+    want = golden_render(scene_to_numpy(scene), {k: v.cpu().numpy() for k, v in cam.items()},
+                         config)
+    check("entry scene, every pair, vs golden.py", full.cpu().numpy(), want)
+
+    def best_ms(frame):
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ENTRY_FRAMES):
+                frame()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3 / ENTRY_FRAMES)
+        return best
+
+    eager_ms = best_ms(lambda: fn(*args))
+    replay_ms = best_ms(graph.replay)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(ENTRY_FRAMES):
+            graph.replay()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    records = {k.__name__: sum(1 for e in device if re.search(TRACE_NAMES[k.__name__], e.key))
+               for k in counted}
+    busy = sum(e.self_device_time_total for e in device) / 1e3 / ENTRY_FRAMES
+    require(torch.equal(replayed, eager), "a timed replay of the entry frame differs")
+    require(all(n == ENTRY_FRAMES for n in records.values()),
+            f"kernel records in a trace of {ENTRY_FRAMES} replayed entry frames: {records}")
+    log(f"  entry ms/frame [{card}]: eager {eager_ms:.4f}, replayed {replay_ms:.4f}; device busy "
+        f"{busy:.4f} ms/frame in a trace of {ENTRY_FRAMES} replays (records {records})")
+
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    out = graft_entry.dryrun_multichip(n)
+    wall = time.perf_counter() - t0
+    want_checks = ["uniform", "balanced", "parity"] + (["mesh_2d"] if n >= 4 and n % 2 == 0
+                                                        else []) + ["dp_step"]
+    require(list(out) == want_checks, f"dryrun_multichip({n}) ran {list(out)}")
+    for name, c in out.items():
+        # The training step blends in plain PyTorch: K4 runs only in frames.
+        need = [k.__name__ for k in counted
+                if not (name == "dp_step" and k is graft_entry.rasterize_tiles)]
+        require(all(c["launches"][k] >= 1 for k in need),
+                f"dryrun check {name} did not launch {need}: {c['launches']}")
+    checks = {name: {k: v for k, v in c.items() if k != "image"} for name, c in out.items()}
+    log(f"  dryrun_multichip({n}) over NCCL in {wall:.1f} s: seconds by check "
+        + ", ".join(f"{k} {c['seconds']:.2f}" for k, c in checks.items()))
+    numbers = dict(entry=dict(eager_ms=eager_ms, replay_ms=replay_ms, busy_ms=busy,
+                              launches=launches, trace_records=records,
+                              candidates=candidates, pairs=entry_pairs),
+                   dryrun=dict(ranks=n, seconds=wall, checks=checks))
+    log(f"  phase 15 numbers [{card}]: {json.dumps(numbers)}")
+
+
 def main() -> int:
     import torch
 
@@ -2425,6 +2547,13 @@ def main() -> int:
     t0 = time.perf_counter()
     measure_harness(dev, card, goldens)
     log(f"  phase 14 in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 15. the graft entry -----------------------------------------------------
+    log("== 15. the graft entry: graft_entry.entry() eager, captured and replayed; "
+        "dryrun_multichip over NCCL at the visible card count")
+    t0 = time.perf_counter()
+    graft_entry_phase(dev, card)
+    log(f"  phase 15 in {time.perf_counter() - t0:.1f} s")
 
     P = "cudagaussianrenderer_tpu/ops/"
     # name -> (source file, counted wrapper, path that runs it, TPU kernel)

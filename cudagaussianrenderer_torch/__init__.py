@@ -47,6 +47,12 @@ server whose loop thread renders on the card), ``convert``, ``merge``,
 ``eval``, ``compare`` and ``fit`` (``render --depth`` writes the expected
 depth map of the differentiable path), each with ``--device {cuda,cpu}``.
 
+The JAX repository's ``__graft_entry__.py`` is ``graft_entry``: ``entry()`` gives
+one capturable frame's function and its example arguments, and
+``dryrun_multichip(n)`` checks a sharded frame and a data-parallel step on
+n ranks (``python -m cudagaussianrenderer_torch.graft_entry [multichip
+N]``).
+
 The bench, ``python -m cudagaussianrenderer_torch.bench``, replays one
 frame captured as a CUDA graph for each orbit camera (``render_frame_tensors``
 is the frame's device part).  Quick start::

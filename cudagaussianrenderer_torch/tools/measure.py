@@ -132,9 +132,9 @@ def bench_cameras(scene, n: int = PROBE_CAMERAS) -> list:
     return orbit_cameras(scene.bounds_min, scene.bounds_max, n)
 
 
-def bench_camera(scene, dev: torch.device):
-    """Orbit camera 0 of PROBE_CAMERAS as the stages take it, on ``dev``."""
-    return camera_tensors(bench_cameras(scene)[0].camera_data(), dev)
+def bench_camera(scene, dev: torch.device, idx: int = 0, n: int = PROBE_CAMERAS):
+    """Orbit camera ``idx`` of ``n`` as the stages take it, on ``dev``."""
+    return camera_tensors(bench_cameras(scene, n)[idx].camera_data(), dev)
 
 
 def salted_camera(cam: Dict[str, torch.Tensor], s) -> Dict[str, torch.Tensor]:

@@ -39,25 +39,25 @@ SMOKE_TRAIN_ROWS = ((2_000, 64),)
 SMOKE_DP = dict(size=64, n_scene=1_000, n_init=500, steps=2)
 
 
-def run(target: str, dev, *, n: int = SMOKE_N, capacity: int = SMOKE_CAPACITY,
+def run(which: str, dev, *, n: int = SMOKE_N, capacity: int = SMOKE_CAPACITY,
         size: int = SMOKE_SIZE) -> None:
-    """Run one target; raise if it fails."""
-    if target in measure.COMMANDS:
-        result = measure.run(target, dev, n=SMOKE_REORDER_N if target == "reorder" else n,
+    """Run the target ``which``; raise if it fails."""
+    if which in measure.COMMANDS:
+        result = measure.run(which, dev, n=SMOKE_REORDER_N if which == "reorder" else n,
                              capacity=capacity, reps=1, size=size,
                              train_rows=SMOKE_TRAIN_ROWS, dp_kw=SMOKE_DP)
         if result["failed"]:
             raise RuntimeError(f"failed lines: {result['failed']}")
-    elif target == "bench":
+    elif which == "bench":
         bench.main([str(n), "4", "--size", str(256 * size // SMOKE_SIZE), "--device", dev.type])
-    elif target == "suite1":
+    elif which == "suite1":
         bench_suite.main(["1", "--n-scale", str(n / SMOKE_N), "--size-scale",
                           str(size / SMOKE_SIZE), "--device", dev.type])
-    elif target == "selfcheck":
+    elif which == "selfcheck":
         if selfcheck.main(["--device", dev.type]) != 0:
             raise RuntimeError("the selfcheck drifted")
     else:
-        raise ValueError(f"unknown smoke target {target!r}: one of {', '.join(TARGETS)}")
+        raise ValueError(f"unknown smoke target {which!r}: one of {', '.join(TARGETS)}")
 
 
 def main(argv=None) -> int:

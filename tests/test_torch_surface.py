@@ -9,8 +9,11 @@ name it imports); every public method of a JAX class must be a method of
 the port's class, every field (a NamedTuple's or dataclass's annotated
 attribute) one of its fields in the same order; and every parameter of a
 JAX function or method must be accepted by the port's.  The port may take
-more (``device=``, ``generator=``).  Exceptions are the TPU's own layout
-and mode knobs, listed below with their reasons."""
+more (``device=``, ``generator=``).  The JAX repository's scripts that
+run the package (``__graft_entry__.py``, ``bench.py`` and the tools) are
+held the same way against their counterparts in the port, by the map
+SCRIPTS.  Exceptions are the TPU's own layout and mode knobs and the JAX
+scripts' own plumbing, listed below with their reasons."""
 
 import ast
 from pathlib import Path
@@ -21,7 +24,18 @@ ROOT = Path(__file__).resolve().parent.parent
 JAX_PKG = ROOT / "cudagaussianrenderer_tpu"
 PORT_PKG = ROOT / "cudagaussianrenderer_torch"
 
-# (module, name) of the JAX package with no counterpart in the port.
+# The JAX repository's scripts that run the package -> their counterparts
+# in the port, both relative to the repository's root.
+SCRIPTS = {
+    "__graft_entry__.py": "cudagaussianrenderer_torch/graft_entry.py",
+    "bench.py": "cudagaussianrenderer_torch/bench.py",
+    **{f"tools/{name}.py": f"cudagaussianrenderer_torch/tools/{name}.py"
+       for name in ("bench_suite", "fit_artifact", "make_artifact", "measure", "smoke_batch")},
+    "tools/tpu_selfcheck.py": "cudagaussianrenderer_torch/tools/selfcheck.py",
+}
+
+# (module, name) of the JAX package, or of a script of SCRIPTS, with no
+# counterpart in the port.
 ALLOWED_NAMES = {
     ("ops/expand.py", "WINDOW"):
         "the emit kernel's DMA window of 512 splats a VMEM copy; K3 on the card "
@@ -39,6 +53,23 @@ ALLOWED_NAMES = {
         "pair by pair",
     ("ops/raster.py", "SCAN_MODE"): "the TPU's choice of scan form; K4 runs no scan",
     ("ops/raster.py", "SCAN_WIDTH"): "the TPU scan's matrix width; K4 runs no scan",
+    ("tools/measure.py", "timed"):
+        "jit, a compile and the best of 3 runs of a lax.scan; Harness.timed replays a "
+        "CUDA graph of REPS calls instead",
+    ("tools/measure.py", "scanned"):
+        "a body repeated REPS times by lax.scan inside one jit; Harness.timed captures "
+        "REPS calls in one CUDA graph",
+    ("tools/measure.py", "dispatch_baseline"):
+        "Harness.dispatch_baseline, a method of the harness that keeps the baseline",
+    ("tools/smoke_batch.py", "ROOT"):
+        "the repository root, to load the JAX tools by file path; the port's tools are "
+        "modules of its package",
+    ("tools/tpu_selfcheck.py", "FAILURES"):
+        "a module-level list that check() fills; the port's selfcheck.run returns the "
+        "drifting cases",
+    ("tools/tpu_selfcheck.py", "check"):
+        "prints a case and appends a drift to FAILURES; the port's selfcheck.compare "
+        "returns the bad share and the largest difference, and run prints them",
 }
 # Parameters of JAX functions that the port's need not accept, by name
 # (anywhere) or by (module, function, name).
@@ -145,12 +176,21 @@ def _missing_params(rel, qualname, jfn, pfn):
             if p not in ALLOWED_PARAMS and (rel, qualname, p) not in ALLOWED_FUNCTION_PARAMS]
 
 
+def _paths(rel: str):
+    """(the JAX file, the port's) of a module of the JAX package or a
+    script of SCRIPTS."""
+    if rel in SCRIPTS:
+        return ROOT / rel, ROOT / SCRIPTS[rel]
+    return JAX_PKG / rel, PORT_PKG / rel
+
+
 def surface_gaps(rel: str):
-    """What the port's module at ``rel`` lacks of the JAX module's surface."""
-    port_path = PORT_PKG / rel
+    """What the port's counterpart of ``rel`` (a module of the JAX package
+    or a script of SCRIPTS) lacks of its surface."""
+    jax_path, port_path = _paths(rel)
     if not port_path.exists():
         return ["<module>"]
-    jtree = ast.parse((JAX_PKG / rel).read_text())
+    jtree = ast.parse(jax_path.read_text())
     port = _bindings(ast.parse(port_path.read_text()))
     gaps = []
     for name, node in _surface(jtree, rel.endswith("__init__.py")):
@@ -193,16 +233,23 @@ def test_port_module_has_the_jax_surface(rel):
     assert surface_gaps(rel) == [], f"the port's {rel} lacks these of the JAX package's"
 
 
+@pytest.mark.parametrize("rel", sorted(SCRIPTS))
+def test_port_script_has_the_jax_surface(rel):
+    assert surface_gaps(rel) == [], f"the port's {SCRIPTS[rel]} lacks these of the JAX {rel}"
+
+
 def test_allow_list_names_only_real_gaps():
     """Each allowed name is in the JAX module and absent from the port's,
     and each allowed function parameter is one the JAX function takes and
     the port's does not: an entry that no longer excuses anything goes."""
     for rel, name in ALLOWED_NAMES:
-        assert name in dict(_surface(ast.parse((JAX_PKG / rel).read_text()), False)), (rel, name)
-        assert name not in _bindings(ast.parse((PORT_PKG / rel).read_text())), (rel, name)
+        jax_path, port_path = _paths(rel)
+        assert name in dict(_surface(ast.parse(jax_path.read_text()), False)), (rel, name)
+        assert name not in _bindings(ast.parse(port_path.read_text())), (rel, name)
     for rel, fn, param in ALLOWED_FUNCTION_PARAMS:
-        jfn = _bindings(ast.parse((JAX_PKG / rel).read_text()))[fn]
-        pfn = _bindings(ast.parse((PORT_PKG / rel).read_text()))[fn]
+        jax_path, port_path = _paths(rel)
+        jfn = _bindings(ast.parse(jax_path.read_text()))[fn]
+        pfn = _bindings(ast.parse(port_path.read_text()))[fn]
         assert param in _params(jfn)[0] and param not in _params(pfn)[0], (rel, fn, param)
     for param in ALLOWED_PARAMS:
         assert any(
