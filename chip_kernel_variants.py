@@ -12,7 +12,9 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 Every time is device time from a torch.profiler trace (the kernels alone,
 back to back in a queue the host filled ahead), at the main path's shapes (1M splats
 SH-3, 1024x1024, camera 0 of chip_smoke.py) and on the huge-splat
-1024x1024 scene.  K4 is also timed with the early exit disabled
+1024x1024 scene, and at 8x8 and 32x32 tiles of the main path's scene; with
+--variants also at the tiles above 32x32 of K4_TILES.  K4 is also timed
+with the early exit disabled
 (transmittance_eps = -1): every sorted pair is then blended, lists are
 ~890 pairs deep, and the rate is the inner loop's own, free of per-tile
 set-up; with that the tiles are also run heaviest first and lightest first.
@@ -49,21 +51,91 @@ sys.path.insert(0, str(ROOT))
 # launch is queued before the first runs and the kernels run back to back.
 HEAD_START_CYCLES = 40_000_000
 
+
+def _k4_pixels(px):
+    """Groups of ``px`` pixels where the committed kernel takes 4."""
+    return [("(px == 4 || px == 1)", f"(px == {px} || px == 1)"),
+            ("  if (px == 4)\n", f"  if (px == {px})\n"),
+            ("pick<4, true>", f"pick<{px}, true>"), ("pick<4, false>", f"pick<{px}, false>")]
+
+
+# K4's design before thread-block clusters: a tile in one block, whose
+# threads loop over the groups, their state in `out`, where a tile has more
+# groups than 1,024 (a 128x128 tile), launched with one block a tile
+# (k4_geometry).
+K4_ONE_BLOCK = "one block a tile (before clusters)"
+_K4_ONE_BLOCK = [
+    ("// A larger tile: a cluster of blocks, a band of rows each.",
+     "template <int kPx, bool kGaussian, bool kDevOffset>\n"
+     "__global__ void __launch_bounds__(kMaxThreads) raster_looped_kernel(GSR_RASTER_ARGS) {\n"
+     "  raster_tile<kPx, kGaussian, kDevOffset, false, true>(GSR_RASTER_PASS);\n"
+     "}\n\n"
+     "// A larger tile: a cluster of blocks, a band of rows each."),
+    ("  if (!cluster)\n    return dev_offset ? raster_kernel",
+     "  if (!cluster && looped)\n"
+     "    return dev_offset ? raster_looped_kernel<kPx, kGaussian, true>\n"
+     "                      : raster_looped_kernel<kPx, kGaussian, false>;\n"
+     "  if (!cluster)\n    return dev_offset ? raster_kernel"),
+    ("pick_kernel(px, gaussian, dev, cluster > 1 || looped, looped)",
+     "pick_kernel(px, gaussian, dev, cluster > 1, looped)"),
+    ("  if (cluster == 1 && !looped) {\n    kernel<<<", "  if (cluster == 1) {\n    kernel<<<"),
+]
+# The cluster's barrier in one piece, after the decode (which it then
+# publishes), instead of arriving after the blend and waiting after the decode.
+_K4_UNSPLIT = [
+    ("      if (tid < 3) s_vote[tid] = 0;\n      cluster_arrive();\n",
+     "      if (tid < 3) s_vote[tid] = 0;\n"),
+    ("        __syncthreads();\n        if (waiting) {\n          cluster_wait();",
+     "        if (!waiting) __syncthreads();\n"
+     "        if (waiting) {\n          cluster_arrive();\n          cluster_wait();"),
+    ("          cluster_arrive();\n          waiting = true;\n        }\n      }\n      b0 = next;",
+     "          waiting = true;\n        }\n      }\n      b0 = next;"),
+]
+# Variants whose launch differs: name -> {"pixels": a group's pixels at the
+# main path's 16x16 tiles; "cap": the largest cluster; "block_threads": the
+# threads a cluster's block aims at (as many blocks as give each about that
+# many); "rows": the rows a band aims at (at four pixels a group, or at one
+# too with "one_pixel_too")}.
+K4_LAUNCH = {
+    "8 pixels a thread": {"pixels": 8},
+    "2 pixels a thread": {"pixels": 2},
+    K4_ONE_BLOCK: {"cap": 1},
+    "clusters of 8 blocks at most": {"cap": 8},
+    "128 threads a cluster block": {"block_threads": 128},
+    "512 threads a cluster block": {"block_threads": 512},
+    "256 threads a cluster block (this design's first rule)": {"block_threads": 256},
+    "96 threads a cluster block": {"block_threads": 96},
+    "cluster barrier unsplit, 128 threads a cluster block": {"block_threads": 128},
+    "bands of 8 rows at 4 pixels a group": {"rows": 8},
+    "bands of 8 rows": {"rows": 8, "one_pixel_too": True},
+}
+# The variants timed at the tiles above 32x32 (emit_raster's second part).
+K4_TILE_VARIANTS = ("committed", K4_ONE_BLOCK, "clusters of 8 blocks at most",
+                    "256 threads a cluster block (this design's first rule)",
+                    "96 threads a cluster block", "128 threads a cluster block",
+                    "512 threads a cluster block", "cluster barrier unsplit",
+                    "cluster barrier unsplit, 128 threads a cluster block",
+                    "bands of 8 rows at 4 pixels a group", "bands of 8 rows",
+                    "clusters in tile order", "committed, timed again")
+# (tile edge, screen edge) of those, on the main path's scene and camera 0.
+K4_TILES = ((36, 1008), (40, 1000), (48, 1008), (56, 1008), (64, 1024), (80, 960), (96, 960),
+            (128, 1024), (256, 1024), (30, 990), (34, 1020), (50, 1000))
+
 # name -> [(old text, new text), ...] applied to csrc/raster.cu
 K4_VARIANTS = {
     "committed": [],
-    "8 pixels a thread": [
-        ("tile_size % 4 == 0", "tile_size % 8 == 0"),
-        ("pick<4, true>(dev, looped) : pick<4, false>(dev, looped)",
-         "pick<8, true>(dev, looped) : pick<8, false>(dev, looped)"),
-        ("(wide ? 4 : 1)", "(wide ? 8 : 1)"),
-    ],
-    "2 pixels a thread": [
-        ("tile_size % 4 == 0", "tile_size % 2 == 0"),
-        ("pick<4, true>(dev, looped) : pick<4, false>(dev, looped)",
-         "pick<2, true>(dev, looped) : pick<2, false>(dev, looped)"),
-        ("(wide ? 4 : 1)", "(wide ? 2 : 1)"),
-    ],
+    "8 pixels a thread": _k4_pixels(8),
+    "2 pixels a thread": _k4_pixels(2),
+    K4_ONE_BLOCK: _K4_ONE_BLOCK,
+    "clusters of 8 blocks at most": [],
+    "128 threads a cluster block": [],
+    "512 threads a cluster block": [],
+    "cluster barrier unsplit": _K4_UNSPLIT,
+    "256 threads a cluster block (this design's first rule)": [],
+    "96 threads a cluster block": [],
+    "cluster barrier unsplit, 128 threads a cluster block": _K4_UNSPLIT,
+    "bands of 8 rows at 4 pixels a group": [],
+    "bands of 8 rows": [],
     "pair loop unrolled 2": [("#pragma unroll 4\n      for (int k = lo;",
                               "#pragma unroll 2\n      for (int k = lo;")],
     "pair loop not unrolled": [("#pragma unroll 4\n      for (int k = lo;",
@@ -86,17 +158,24 @@ K4_VARIANTS = {
          "                                    : fmaf(fmaf(ge.z, dx, t1), dx, t2);"),
         ("? ex2_approx(fminf(m, co.y))", "? ex2_approx(fmaf(m, -128.0f, co.y))"),
     ],
-    # Block b takes tile order[b], read from a second half of the starts
-    # array (this script appends the tiles sorted by list length, longest
-    # first): what starting the long lists first would be worth.
+    # Block b of a tile of up to 32x32 pixels takes tile order[b] too, as
+    # the clusters do: what starting the long lists first is worth there.
     "longest lists first": [
-        ("const int tile = blockIdx.x;", "const int tile = starts[gridDim.x + blockIdx.x];"),
+        ("tile_order[cluster_index()] : blockIdx.x;",
+         "tile_order[cluster_index()] : tile_order[blockIdx.x];"),
+    ],
+    # The clusters in the order of their tiles, as this design began: a few
+    # long lists left last make a tail.
+    "clusters in tile order": [
+        ("tile_order[cluster_index()] : blockIdx.x;",
+         "static_cast<int>(cluster_index()) : blockIdx.x;"),
     ],
     # Wrong pictures, timing only: what the special-function unit costs.
     "no ex2 (timing only)": [("? ex2_approx(fminf(m, co.y))", "? fminf(m, co.y)")],
     # 2^x on the FMA pipe for the first of a thread's four pixels.
     "polynomial ex2 for 1 pixel of 4": [
-        ("template <int kPx, bool kGaussian, bool kDevOffset, bool kLooped>\n__device__",
+        ("template <int kPx, bool kGaussian, bool kDevOffset, bool kCluster, bool kLooped>\n"
+         "__device__",
          "__device__ __forceinline__ float ex2_poly(float x) {\n"
          "  x = fmaxf(x, -126.0f);\n"
          "  const float t = x + 12582912.0f;\n"
@@ -109,10 +188,13 @@ K4_VARIANTS = {
          "  p = fmaf(p, f, 1.0f);\n"
          "  return __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));\n"
          "}\n\n"
-         "template <int kPx, bool kGaussian, bool kDevOffset, bool kLooped>\n__device__"),
+         "template <int kPx, bool kGaussian, bool kDevOffset, bool kCluster, bool kLooped>\n"
+         "__device__"),
         ("? ex2_approx(fminf(m, co.y))",
          "? (p < 1 ? ex2_poly(fminf(m, co.y)) : ex2_approx(fminf(m, co.y)))"),
     ],
+    # The committed kernel once more, after the others: the spread of a reading.
+    "committed, timed again": [],
 }
 
 # name -> replacements applied to csrc/emit.cu
@@ -452,6 +534,74 @@ K7_VARIANTS = {
 }
 
 
+def build_variant(scratch, source, tag, replacements, symbol, argtypes):
+    """csrc/<source>.cu with ``replacements`` applied, built into directory
+    ``scratch`` with the committed flags: (the C function ``symbol`` with
+    ``argtypes``, the registers ptxas reports a kernel, ptxas's lines)."""
+    from cudagaussianrenderer_torch.utils import cuda_build as cb
+
+    text = (cb.CSRC / f"{source}.cu").read_text()
+    for old, new in replacements:
+        if old not in text:
+            raise RuntimeError(f"variant {tag!r}: {old!r} is not in csrc/{source}.cu")
+        text = text.replace(old, new)
+    src = Path(scratch) / f"{source}_{len(list(Path(scratch).iterdir()))}.cu"
+    src.write_text(text)
+    lib = src.with_suffix(".so")
+    proc = subprocess.run(
+        [cb.nvcc_path(), *cb.flags(source), f"-I{cb.CSRC}", "-o", str(lib), str(src)],
+        capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"variant {tag!r} does not build:\n{proc.stdout}{proc.stderr}")
+    lines = (proc.stdout + proc.stderr).splitlines()
+    regs = [line.split("Used ")[1].split(" registers")[0] for line in lines if "registers" in line]
+    fn = getattr(ctypes.CDLL(str(lib)), symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn, regs, [line.strip() for line in lines if "ptxas info" in line or "spill" in line]
+
+
+def k4_geometry(tag, tile_size, cap):
+    """The launch geometry (ops/raster.py:RasterGeometry) K4 variant ``tag``
+    takes at ``tile_size``, on a card whose largest cluster is ``cap``."""
+    from cudagaussianrenderer_torch.ops.raster import MAX_THREADS, RasterGeometry, raster_geometry
+
+    launch = K4_LAUNCH.get(tag, {})
+    if "pixels" in launch:
+        px = launch["pixels"] if tile_size % launch["pixels"] == 0 else 1
+        return RasterGeometry(px, 1, tile_size, tile_size * tile_size // px)
+    px = 4 if tile_size % 4 == 0 else 1
+    per_row = tile_size // px
+    if tile_size * tile_size <= MAX_THREADS or not ({"rows", "block_threads"} & set(launch)):
+        return raster_geometry(tile_size, min(cap, launch.get("cap", cap)))
+    if "rows" in launch and (px == 4 or launch.get("one_pixel_too")):
+        cluster = -(-tile_size // launch["rows"])
+    else:  # as many blocks as give each about block_threads threads
+        cluster = -(-tile_size * per_row // launch.get("block_threads", 256))
+    cluster = min(cap, max(2, cluster))
+    band_rows = -(-tile_size // cluster)
+    groups = band_rows * per_row
+    turns = -(-groups // MAX_THREADS)
+    return RasterGeometry(px, -(-tile_size // band_rows), band_rows, -(-groups // turns))
+
+
+def k4_call(fn, pair_data, starts, counts, cfg, geometry, out, eps=None):
+    """A K4 launch of library function ``fn`` (gsr_raster) with ``geometry``,
+    the tiles longest list first where a variant reads the order."""
+    import torch
+
+    order = torch.argsort(counts, descending=True).to(torch.int32)
+
+    def call():
+        code = fn(pair_data.data_ptr(), pair_data.shape[1], starts.data_ptr(), counts.data_ptr(),
+                  order.data_ptr(), cfg.total_tiles, cfg.tiles_x, cfg.tile_size, 0, None,
+                  2.0 / cfg.screen_w, 2.0 / cfg.screen_h, cfg.raster_chunk, cfg.transmittance_eps if eps is None else eps,
+                  int(cfg.falloff == "gaussian"), int(cfg.background is not None), *geometry,
+                  out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"launch failed: {code}")
+    return call
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--variants", action="store_true",
@@ -459,7 +609,8 @@ def main() -> int:
     parser.add_argument("--kernels", choices=("all", "emit-raster", "stack-compact", "edges"),
                         default="all", help="which kernels to time (default: all five)")
     parser.add_argument("--match", default="",
-                        help="of the variants, only 'committed' and those whose name holds this")
+                        help="of the variants, only 'committed' and those whose name holds "
+                             "this (or one of several texts separated by '|')")
     args = parser.parse_args()
 
     import torch
@@ -522,23 +673,7 @@ def main() -> int:
     scratch = Path(tmp.name)
 
     def build(source, tag, replacements, symbol, argtypes):
-        text = (cb.CSRC / f"{source}.cu").read_text()
-        for old, new in replacements:
-            if old not in text:
-                raise RuntimeError(f"variant {tag!r}: {old!r} is not in csrc/{source}.cu")
-            text = text.replace(old, new)
-        src = scratch / f"{source}_{len(list(scratch.iterdir()))}.cu"
-        src.write_text(text)
-        lib = src.with_suffix(".so")
-        proc = subprocess.run(
-            [cb.nvcc_path(), *cb.flags(source), f"-I{cb.CSRC}", "-o", str(lib), str(src)],
-            capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"variant {tag!r} does not build:\n{proc.stdout}{proc.stderr}")
-        regs = [line.split("Used ")[1].split(" registers")[0]
-                for line in (proc.stdout + proc.stderr).splitlines() if "registers" in line]
-        fn = getattr(ctypes.CDLL(str(lib)), symbol)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fn, regs, _ = build_variant(scratch, source, tag, replacements, symbol, argtypes)
         return fn, regs
 
     cfg = RenderConfig()
@@ -548,7 +683,7 @@ def main() -> int:
     cam0 = orbit_cameras(scene.bounds_min, scene.bounds_max, 8)[0]
     def chosen(variants):
         return {tag: repl for tag, repl in variants.items()
-                if tag == "committed" or args.match in tag}
+                if tag == "committed" or any(m in tag for m in args.match.split("|"))}
 
     tools = dict(torch=torch, dev=dev, cb=cb, device_ms=device_ms, build=build,
                  variants=args.variants, chosen=chosen)
@@ -562,22 +697,50 @@ def main() -> int:
     return 0
 
 
+def k4_tile_case(scene, cam, cfg):
+    """K4's inputs for ``cfg`` on ``scene`` from camera ``cam`` (a Camera), at
+    the capacity a Renderer would bucket the candidates into."""
+    import torch
+
+    from cudagaussianrenderer_torch import Renderer
+    from cudagaussianrenderer_torch.ops import raster
+    from cudagaussianrenderer_torch.ops.binning import emit_columns
+    from cudagaussianrenderer_torch.ops.projection import project_splats
+    from cudagaussianrenderer_torch.render import (
+        _frame_pairs, _splat_colors, camera_tensors, round_capacity,
+    )
+
+    c = camera_tensors(cam.camera_data(), scene.means.device)
+    clip = project_splats(scene.means, scene.scales, scene.quats, c, cfg, opacities=scene.opacities)
+    _, incl = emit_columns(clip, _splat_colors(scene, c), scene.opacities, cfg)
+    total = int(incl[-1])
+    cap = round_capacity(Renderer._bucket(total), scene.means.device)
+    _, attrs, starts, counts = _frame_pairs(scene, c, cfg, cap)
+    torch.cuda.synchronize()
+    return dict(cfg=cfg, pairs=min(total, cap), starts=starts, counts=counts,
+                pair_data=raster.pack_pair_data(attrs, cfg.raster_chunk))
+
+
 def emit_raster(tools, scene, cam0, cfg):
     """K3 and K4 through their wrappers and, with --variants, their variants."""
     torch, dev, cb = tools["torch"], tools["dev"], tools["cb"]
     device_ms, build = tools["device_ms"], tools["build"]
-    from cudagaussianrenderer_torch import RenderConfig, random_scene
+    from cudagaussianrenderer_torch import RenderConfig, Renderer, random_scene
     from cudagaussianrenderer_torch.models.camera import Camera
     from cudagaussianrenderer_torch.ops import expand, raster
     from cudagaussianrenderer_torch.ops.binning import emit_columns
     from cudagaussianrenderer_torch.ops.projection import project_splats
-    from cudagaussianrenderer_torch.render import _frame_pairs, _splat_colors, camera_tensors
+    from cudagaussianrenderer_torch.render import (
+        _frame_pairs, _splat_colors, camera_tensors, round_capacity,
+    )
 
-    def setup(scene_, cam, cfg_, cap):
+    def setup(scene_, cam, cfg_, cap=None):
         c = camera_tensors(cam.camera_data(), dev)
         clip = project_splats(scene_.means, scene_.scales, scene_.quats, c, cfg_,
                               opacities=scene_.opacities)
         cols, incl = emit_columns(clip, _splat_colors(scene_, c), scene_.opacities, cfg_)
+        if cap is None:  # as Renderer buckets the candidates
+            cap = round_capacity(Renderer._bucket(int(incl[-1])), dev)
         rows = expand.interleave_rows(incl, tuple(x.contiguous() for x in cols), cap + 1)
         _, attrs, starts, counts = _frame_pairs(scene_, c, cfg_, cap)
         return dict(cfg=cfg_, cap=cap, rows=rows, starts=starts.contiguous(),
@@ -592,6 +755,8 @@ def emit_raster(tools, scene, cam0, cfg):
         "huge splats": setup(hscene, Camera(aspect=1.0).framed(hscene.bounds_min,
                                                                 hscene.bounds_max),
                              hcfg, 524288),
+        "8x8 tiles": setup(scene, cam0, RenderConfig(tile_size=8)),
+        "32x32 tiles": setup(scene, cam0, RenderConfig(tile_size=32)),
     }
 
     print("== K3, K4 of this checkout, through their wrappers (device ms)")
@@ -611,49 +776,76 @@ def emit_raster(tools, scene, cam0, cfg):
         c["evals"] = stats["pairs_blended"] * c["cfg"].pixels_per_tile
         c["words"] = expand._emit_torch(c["rows"], c["cap"], c["cfg"])
 
-    def raster_call(fn, c, out, eps=None, order=None):
-        cfg_ = c["cfg"]
+    def raster_call(fn, c, out, tag, eps=None, order=None):
         starts, counts = c["starts"], c["counts"]
         if order is not None:
             starts, counts = starts[order].contiguous(), counts[order].contiguous()
-
-        def call():
-            code = fn(c["pair_data"].data_ptr(), c["pair_data"].shape[1], starts.data_ptr(),
-                      counts.data_ptr(), cfg_.total_tiles, cfg_.tiles_x, cfg_.tile_size, 0, None,
-                      2.0 / cfg_.screen_w, 2.0 / cfg_.screen_h, cfg_.raster_chunk,
-                      cfg_.transmittance_eps if eps is None else eps, 1, 0, out.data_ptr(),
-                      torch.cuda.current_stream().cuda_stream)
-            if code:
-                raise RuntimeError(f"launch failed: {code}")
-        return call
+        geometry = k4_geometry(tag, c["cfg"].tile_size, cap)
+        return k4_call(fn, c["pair_data"], starts, counts, c["cfg"], geometry, out, eps)
 
     print("== K4 variants (device ms; 'no exit' blends every sorted pair)")
-    k4_args = [cb.P, cb.I64, cb.P, cb.P, cb.I32, cb.I32, cb.I32, cb.I32, cb.P, cb.F32, cb.F32,
-               cb.I32, cb.F32, cb.I32, cb.I32, cb.P, cb.P]
+    cap = raster.max_cluster(torch.cuda.current_device())
     m = cases["main path"]
     all_evals = int(m["counts"].sum()) * m["cfg"].pixels_per_tile
     heavy = torch.argsort(m["counts"], descending=True)
+    libs = {}
     for tag, repl in tools["chosen"](K4_VARIANTS).items():
-        fn, regs = build("raster", tag, repl, "gsr_raster", k4_args)
-        line = f"  {tag}: registers {regs[-1]}"
+        fn, regs = libs[tag] = build("raster", tag, repl, "gsr_raster", raster.RASTER_ARGTYPES)
+        line = f"  {tag}: registers {'/'.join(regs)}"
         for name, c in cases.items():
             out = torch.empty_like(c["tiles"])
-            if tag == "longest lists first":
-                c = dict(c, starts=torch.cat(
-                    [c["starts"], torch.argsort(c["counts"], descending=True).to(torch.int32)]))
-            ms = device_ms(raster_call(fn, c, out))
+            ms = device_ms(raster_call(fn, c, out, tag))
             err = float((out - c["tiles"]).abs().max())
             line += (f"; {name} {ms:.4f} ({c['evals'] / ms / 1e9:.3f} G evaluations/ms, "
                      f"max err {err:.1e})")
-        if tag == "longest lists first":
-            print(line, flush=True)
-            continue
         out = torch.empty_like(m["tiles"])
-        no_exit = device_ms(raster_call(fn, m, out, eps=-1.0), 10)
-        first = device_ms(raster_call(fn, m, out, eps=-1.0, order=heavy), 10)
-        last = device_ms(raster_call(fn, m, out, eps=-1.0, order=heavy.flip(0)), 10)
+        no_exit = device_ms(raster_call(fn, m, out, tag, eps=-1.0), 10)
+        first = device_ms(raster_call(fn, m, out, tag, eps=-1.0, order=heavy), 10)
+        last = device_ms(raster_call(fn, m, out, tag, eps=-1.0, order=heavy.flip(0)), 10)
         line += (f"; no exit {no_exit:.4f} ({all_evals / no_exit / 1e9:.3f} G evaluations/ms), "
                  f"heaviest tiles first {first:.4f}, lightest first {last:.4f}")
+        print(line, flush=True)
+
+    def event_ms(call, reps=20):
+        """Mean ms of ``reps`` back-to-back calls between CUDA events: the
+        kernels' own time where each runs far longer than its launch."""
+        call()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            call()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    print(f"== K4 variants at tiles above 32x32 (device ms from a trace, and between events; "
+          f"largest cluster {cap}; each against its plain version in output levels)")
+    for ts, size in K4_TILES:
+        cfg_t = RenderConfig(screen_size=size, tile_size=ts)
+        c = k4_tile_case(scene, cam0, cfg_t)
+        stats = {}
+        plain = raster._raster_torch(c["pair_data"], c["starts"], c["counts"], cfg_t,
+                                     cfg_t.total_tiles, 0, stats)
+        line = (f"  {ts}x{ts} at {size}x{size}, {cfg_t.total_tiles} tiles, "
+                f"{stats['pairs_blended'] * cfg_t.pixels_per_tile} evaluations:")
+        for tag in K4_TILE_VARIANTS:
+            if tag not in libs:
+                continue
+            out = torch.empty_like(plain)
+            call = raster_call(libs[tag][0], c, out, tag)
+            call()
+            lsb = int((raster.tiles_to_image(out, cfg_t).int()
+                       - raster.tiles_to_image(plain, cfg_t).int()).abs().max())
+            geometry = k4_geometry(tag, ts, cap)
+            line += (f" {tag} {device_ms(call, 10):.4f}, events {event_ms(call):.4f} ({lsb} LSB, "
+                     f"cluster {geometry.cluster}, {geometry.threads} threads);")
+        if "committed" in libs:  # every listed pair blended: the inner loop's own rate
+            out = torch.empty_like(plain)
+            no_exit = device_ms(raster_call(libs["committed"][0], c, out, "committed", eps=-1.0), 5)
+            evals = int(c["counts"].sum()) * cfg_t.pixels_per_tile
+            exit_evals = stats["pairs_blended"] * cfg_t.pixels_per_tile
+            line += (f" committed with no exit {no_exit:.4f} ({evals / no_exit / 1e9:.3f} G "
+                     f"evaluations/ms against {exit_evals / 1e9:.3f} G in the exit's time);")
         print(line, flush=True)
 
     print("== K3 variants (device ms)")

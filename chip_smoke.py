@@ -12,12 +12,17 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
   2. kernel parity at the main path's shapes: each of K1-K4 against its
      plain PyTorch version on the same inputs (K1-K3 exact, K4 within
      K4_LSB_BOUND output levels), with per-kernel times; K3 and K4 also
-     on the huge-splat 1024x1024 scene, parity and time; K4 at the larger
-     tiles of K4_TILE_SIZES (36x36 to 128x128) on the main path's scene and
-     camera, each within K4_TILE_LSB of its plain version, with device time
-     and bound, and a frame of 64x64 tiles at 1024x1024 through
-     Renderer.render (eager, captured and replayed, byte-equal) against
-     golden.py;
+     on the huge-splat 1024x1024 scene, parity and time; K4 at the tiles
+     of K4_TILE_SIZES (30x30 to 256x256, the edges 30 and 50 no multiple of
+     4) on the main path's scene and camera, each within K4_TILE_LSB of its
+     plain version, with device time and bound, in turns with the design
+     before thread-block clusters (chip_kernel_variants.py's one-block
+     variant, held to the same rule), the cluster size and the registers;
+     a frame of 64x64 tiles at 1024x1024 through Renderer.render (eager,
+     captured and replayed, byte-equal) against golden.py; and the main
+     path's scene and cameras through Renderer.render at TILE_FRAME_EDGES
+     tiles (the counts of K1-K4 set to 0 before each and read after;
+     ms/frame replayed, device busy ms, pairs a frame);
   3. golden scenes: the non-banded scenes of tools/tpu_selfcheck.py
      through the port, each against the port's golden.py oracle, and its
      balanced-bands case (two bands of parallel.render_band, summed);
@@ -174,13 +179,20 @@ SFU_PER_CLOCK_PER_SM = 16
 # same pairs in the same order and differ by the kernel's ex2.approx of a
 # conic that carries log2(e), and by fused multiply-adds.
 K4_LSB_BOUND = 4
-# K4 at tiles above the main path's 16x16 (phase 2): (tile edge, screen
-# edge) on phase 4's scene and camera 0; each within K4_TILE_LSB output
-# levels of its plain version.  36 is no multiple of 4 (a pixel a thread,
-# 1,296 groups a tile); 128 has more groups than a block has threads, so
-# each thread loops over several.
-K4_TILE_SIZES = ((36, 1008), (48, 1008), (64, 1024), (128, 1024))
+# K4 at tiles other than the main path's 16x16 (phase 2): (tile edge,
+# screen edge) on phase 4's scene and camera 0; each within K4_TILE_LSB
+# output levels of its plain version.  Above 32x32 a tile is a cluster of
+# blocks; 30 and 50 are no multiple of 4 (a pixel a group: 900 groups, one
+# block; 2,500 groups, a cluster).
+K4_TILE_SIZES = ((36, 1008), (48, 1008), (64, 1024), (128, 1024), (256, 1024), (30, 990),
+                 (50, 1000))
 K4_TILE_LSB = 1
+# Device ms a trace of one K4 design at one tile size may take (at most 20
+# calls, at least 3).
+K4_TILE_TRACE_MS = 300
+# Phase 2's frames of the main path's scene and cameras through
+# Renderer.render at these tile edges (1024x1024).
+TILE_FRAME_EDGES = (16, 32, 64)
 # The 64x64-tile frame of phase 2 through Renderer.render against golden.py:
 # a scene golden.py renders in seconds (~27,800 candidate pairs at 1024x1024).
 TILE_FRAME_SPLATS = 20_000
@@ -336,16 +348,61 @@ def bits_equal(a, b) -> bool:
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
-def k4_tile_sizes(dev, scene, cam, sfu_rate):
+def ptxas_kernels(log):
+    """{kernel's mangled name: (registers, spill stores in bytes)} from an
+    nvcc -Xptxas=-v log."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = [None, 0]
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out[name][1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def k4_registers(kernels, tile_size, geometry):
+    """(registers, spill bytes) of the Gaussian K4 kernel that ``geometry``
+    launches at ``tile_size`` with the row offset as an argument, from
+    ``kernels`` (ptxas_kernels of the committed source or of the one-block
+    variant, whose looped kernel is raster_looped_kernel)."""
+    px = geometry.pixels
+    looped = geometry.threads < geometry.band_rows * (tile_size // px)
+    if geometry.cluster > 1 or looped:
+        wanted = (f"raster_cluster_kernelILi{px}ELb1ELb0ELb{int(looped)}E",
+                  f"raster_looped_kernelILi{px}ELb1ELb0EE")
+    else:
+        wanted = (f"raster_kernelILi{px}ELb1ELb0EE",)
+    for name, regs in kernels.items():
+        if any(w in name for w in wanted):
+            return regs
+    return None
+
+
+def k4_tile_sizes(dev, scene, cam, sfu_rate, builds):
     """Phase 2's K4 at the tile sizes of K4_TILE_SIZES: each against its
     plain version on ``scene`` (phase 4's, padded) from camera tensors
     ``cam``, at the capacity Renderer would bucket its candidates into,
-    with its device time and bound; then one frame of 64x64 tiles at
-    1024x1024 through Renderer.render (a warm-up frame, then its settled
-    key's eager, captured and replayed frames, byte-equal) against
+    with its device time and bound, in turns with the design before
+    clusters (chip_kernel_variants.py's K4_ONE_BLOCK, built here, held to
+    the same rule), the cluster size and the registers of each (from
+    ``builds``, cuda_build.build_all's result); then one frame of 64x64
+    tiles at 1024x1024 through Renderer.render (a warm-up frame, then its
+    settled key's eager, captured and replayed frames, byte-equal) against
     golden.py.  Returns a record a tile size."""
-    import numpy as np
+    import tempfile
 
+    import numpy as np
+    import torch
+
+    import chip_kernel_variants as variants
     from cudagaussianrenderer_torch import RenderConfig, Renderer, orbit_cameras, random_scene
     from cudagaussianrenderer_torch.golden import golden_render, scene_to_numpy
     from cudagaussianrenderer_torch.ops import raster
@@ -353,6 +410,15 @@ def k4_tile_sizes(dev, scene, cam, sfu_rate):
     from cudagaussianrenderer_torch.ops.projection import project_splats
     from cudagaussianrenderer_torch.render import _frame_pairs, _splat_colors, round_capacity
 
+    largest = raster.max_cluster(torch.cuda.current_device())
+    with tempfile.TemporaryDirectory(prefix="gsr_k4_") as scratch:
+        old_fn, _, old_log = variants.build_variant(
+            scratch, "raster", variants.K4_ONE_BLOCK,
+            variants.K4_VARIANTS[variants.K4_ONE_BLOCK], "gsr_raster", raster.RASTER_ARGTYPES)
+    regs_new = ptxas_kernels(builds["raster"]["log"])
+    regs_old = ptxas_kernels("\n".join(old_log))
+    log(f"  K4: the largest cluster this card runs: {largest} blocks; the one-block design "
+        f"built from chip_kernel_variants.py")
     records = []
     for ts, size in K4_TILE_SIZES:
         cfg = RenderConfig(screen_size=size, tile_size=ts)
@@ -367,11 +433,18 @@ def k4_tile_sizes(dev, scene, cam, sfu_rate):
         def call():
             return raster.rasterize_tiles(pair_data, starts, counts, cfg)
 
+        geometry = raster.raster_geometry(ts, largest)
+        old_geometry = variants.k4_geometry(variants.K4_ONE_BLOCK, ts, largest)
+        old_tiles = torch.empty((cfg.total_tiles, cfg.pixels_per_tile, 4), device=dev)
+        old_call = variants.k4_call(old_fn, pair_data, starts, counts, cfg, old_geometry,
+                                    old_tiles)
         tiles = call()
+        old_call()
         stats = {}
         plain = raster._raster_torch(pair_data, starts, counts, cfg, cfg.total_tiles, 0, stats)
-        lsb = int((raster.tiles_to_image(tiles, cfg).int()
-                   - raster.tiles_to_image(plain, cfg).int()).abs().max())
+        img_plain = raster.tiles_to_image(plain, cfg).int()
+        lsb = int((raster.tiles_to_image(tiles, cfg).int() - img_plain).abs().max())
+        old_lsb = int((raster.tiles_to_image(old_tiles, cfg).int() - img_plain).abs().max())
         evals = stats["pairs_blended"] * cfg.pixels_per_tile
         nbytes = (4 * 3 * min(total, cap) + 8 * cfg.total_tiles
                   + 16 * cfg.total_tiles * cfg.pixels_per_tile)
@@ -379,17 +452,42 @@ def k4_tile_sizes(dev, scene, cam, sfu_rate):
                   "operations": max(K4_OPS_PER_EVAL * evals / F32_OPS_PER_S,
                                     evals / sfu_rate) * 1e3}
         bound_by = max(floors, key=floors.get)
+        # In turns: new, old, old, new; 20 calls a trace, fewer of a long kernel,
+        # whose trace may hold no record: then CUDA events (exact enough there).
+        reps = {f: max(3, min(20, int(K4_TILE_TRACE_MS / cuda_ms(f, 1)))) for f in (call, old_call)}
+        timed_by = []
+
+        def k4_ms(f):
+            ms = trace_ms(f, reps[f])
+            timed_by.append("trace" if ms is not None else "events")
+            return ms if ms is not None else cuda_ms(f, reps[f])
+
+        new_ms, old_ms = [k4_ms(call)], [k4_ms(old_call)]
+        old_ms.append(k4_ms(old_call))
+        new_ms.append(k4_ms(call))
+        bound = floors[bound_by]
         rec = dict(tile_size=ts, screen=size, tiles=cfg.total_tiles, pairs=min(total, cap),
                    pairs_blended=stats["pairs_blended"], evaluations=evals, max_lsb=lsb,
-                   max_abs_err=float((tiles - plain).abs().max()), device_ms=trace_ms(call, 20),
-                   bound_ms=floors[bound_by], bound_by=bound_by)
+                   max_abs_err=float((tiles - plain).abs().max()), old_max_lsb=old_lsb,
+                   geometry=geometry._asdict(), old_geometry=old_geometry._asdict(),
+                   registers=k4_registers(regs_new, ts, geometry),
+                   old_registers=k4_registers(regs_old, ts, old_geometry),
+                   device_ms=new_ms, old_device_ms=old_ms, timed_by=timed_by,
+                   bound_ms=bound, bound_by=bound_by,
+                   share=bound / float(np.mean(new_ms)), old_share=bound / float(np.mean(old_ms)))
         records.append(rec)
         log(f"  K4 at {ts}x{ts} tiles, {size}x{size}: {rec['tiles']} tiles, "
             f"{rec['pairs_blended']} of {rec['pairs']} pairs blended = {evals} evaluations, "
-            f"max diff {lsb} LSB (bound {K4_TILE_LSB}), device {rec['device_ms']} ms, "
-            f"bound {rec['bound_ms']:.4f} ms ({bound_by})")
-        require(lsb <= K4_TILE_LSB,
-                f"K4 at {ts}x{ts} tiles differs by {lsb} LSB from its plain version")
+            f"max diff {lsb} LSB (one-block design {old_lsb}; bound {K4_TILE_LSB}); cluster "
+            f"{geometry.cluster} x {geometry.threads} threads, registers {rec['registers']}: "
+            f"device {new_ms} ms; one block: {old_geometry.threads} threads, registers "
+            f"{rec['old_registers']}: {old_ms} ms; bound {bound:.4f} ms ({bound_by}), share "
+            f"{rec['share']:.3f} (one block {rec['old_share']:.3f})")
+        require(lsb <= K4_TILE_LSB and old_lsb <= K4_TILE_LSB,
+                f"K4 at {ts}x{ts} tiles differs by {lsb} LSB (one-block design {old_lsb}) from "
+                f"its plain version")
+        require(geometry.cluster > 1 or ts * ts <= raster.MAX_THREADS,
+                f"K4 at {ts}x{ts} tiles launches no cluster")
 
     fscene = random_scene(TILE_FRAME_SPLATS, seed=0, min_scale=0.002, max_scale=0.053,
                           extent=4.0, sh_degree=3, device=dev)
@@ -413,6 +511,51 @@ def k4_tile_sizes(dev, scene, cam, sfu_rate):
                 f"the {methods[i]} 64x64-tile frame differs from the eager one")
     check("64x64 tiles vs golden.py", frames[0],
           golden_render(scene_to_numpy(fscene), fcam.camera_data(), fcfg))
+    return records
+
+
+def tile_size_frames(dev, scene, cams):
+    """Phase 2's frames of ``scene`` (phase 4's) over ``cams`` through
+    Renderer.render at each edge of TILE_FRAME_EDGES (1024x1024): a warm-up
+    frame, then ORBIT_PASSES passes (a key's first frame eager, its second
+    captured, later ones replayed) with the counts of K1-K4 set to 0 just
+    before and read just after, each at least 1; then a traced pass of
+    replays, K1-K4 once a frame.  Returns a record an edge: ms a replayed
+    frame on the host clock, device busy ms a frame, pairs a frame."""
+    import numpy as np
+    import torch
+
+    from cudagaussianrenderer_torch import RenderConfig, Renderer
+    from cudagaussianrenderer_torch.ops import expand, ranges, raster
+
+    counted = (ranges.tile_edges, expand.interleave_rows, expand.emit_slots,
+               raster.rasterize_tiles)
+    largest = raster.max_cluster(torch.cuda.current_device())
+    records = []
+    for ts in TILE_FRAME_EDGES:
+        r = Renderer(scene, RenderConfig(tile_size=ts))
+        r.render(cams[0])  # warm-up: sizes the capacity from its candidates
+        for fn in counted:
+            fn.launches = 0
+        recs, _ = orbit_passes(r, cams, ORBIT_PASSES)
+        launches = {fn.__name__: fn.launches for fn in counted}
+        for name, count in launches.items():
+            require(count >= 1, f"{name} never launched in the frames of {ts}x{ts} tiles")
+        _, busy, traced_ms = traced_pass(r, cams, [fn.__name__ for fn in counted])
+        replay = [rec["ms"] for rec in recs if rec["method"] == "replay"]
+        pairs = [min(rec["after"][4], rec["after"][0]) for rec in recs]
+        rec = dict(tile_size=ts, tiles=r.config.total_tiles,
+                   geometry=raster.raster_geometry(ts, largest)._asdict(),
+                   replay_ms=float(np.mean(replay)), replay_ms_min=min(replay),
+                   busy_ms=busy, traced_ms=traced_ms, pairs=float(np.mean(pairs)),
+                   capacity=r.capacity, launches=launches,
+                   methods=[rec["method"][0] for rec in recs])
+        records.append(rec)
+        log(f"  Renderer.render at {ts}x{ts} tiles: replayed {rec['replay_ms']:.3f} ms/frame "
+            f"(min {rec['replay_ms_min']:.3f}), device busy {busy:.3f} ms/frame, "
+            f"{rec['pairs']:.0f} pairs/frame, launches {launches}")
+        del r, recs
+        torch.cuda.empty_cache()
     return records
 
 
@@ -549,7 +692,7 @@ TRACE_NAMES = {
     "tile_edges": r"::edges_kernel<",
     "interleave_rows": r"::interleave_kernel\(",
     "emit_slots": r"::emit_kernel<false>",
-    "rasterize_tiles": r"::raster_kernel<",
+    "rasterize_tiles": r"::raster(_cluster)?_kernel<",
     "interleave_rows_padded": r"::interleave_padded_kernel\(",
     "stack_rows": r"::stack(_bulk)?_kernel[<(]",
     "compact_rows": r"::compact_kernel<",
@@ -2160,8 +2303,10 @@ def main() -> int:
         f"{device_ms(lambda: raster.rasterize_tiles(pair_data, starts, counts, config), 20)}")
     if hlsb > K4_LSB_BOUND:
         raise AssertionError(f"K4 raster differs by {hlsb} LSB on the huge-splat scene")
-    k4_tiles = k4_tile_sizes(dev, s, cam, sfu_rate)
+    k4_tiles = k4_tile_sizes(dev, s, cam, sfu_rate, builds)
     log(f"  K4 tile sizes [{card}]: {json.dumps(k4_tiles)}")
+    tile_frames = tile_size_frames(dev, scene, cams)
+    log(f"  Renderer.render by tile size [{card}]: {json.dumps(tile_frames)}")
 
     # ---- 3. golden scenes --------------------------------------------------
     # The non-banded cases of cudagaussianrenderer_torch/tools/selfcheck.py

@@ -37,22 +37,46 @@
 //   * batches of kBatch pairs are double-buffered: the raw words of batch
 //     i + 1 travel global -> shared with cp.async while batch i blends, and
 //     each thread decodes the words it fetched itself, so a batch costs one
-//     barrier, which also carries the vote;
-//   * a tile of more pixel groups than a block has threads (above 64x64
-//     pixels at four a group, 32x32 at one) takes 1,024 threads or fewer,
-//     each looping over several groups whose state waits in `out` between
-//     batches (raster_tile's kLooped), still one block and one vote a tile.
+//     barrier, which also carries the vote.
+// A tile of more than 1,024 pixels (an edge above 32) is a thread-block
+// cluster of Hopper (raster_cluster_kernel): block r of the cluster takes
+// the tile's rows [r * band_rows, (r + 1) * band_rows), the last band
+// shorter where the edge asks for it, and keeps its groups in registers.
+// The blocks are small (3 to 8 warps), so several share an SM, hide each
+// other's barriers, and give every SM work even at 64 tiles of 128x128
+// pixels; a block's state never leaves its registers (a one-block design
+// held a 128x128 tile's state in `out` between batches, at 2.7x the time,
+// PERF.md section 6).  The clusters take the tiles longest list first (an
+// order the wrapper sorts), so that a long list does not run alone at the
+// end of the grid.  Each block stages and decodes the tile's
+// batches itself, from L2 after the first block's read.  The early exit
+// stays the tile's: where a raster_chunk ends, each warp that still has a
+// pixel with T > eps stores a 1 into a vote word of every block of the
+// cluster (distributed shared memory), and one cluster barrier publishes
+// the words.  The barrier is split: a block arrives right after its blend,
+// decodes the next batch, and waits only before that batch's blend, so the
+// decode hides the barrier's latency.  Three vote words take turns: a word
+// is cleared by its block before the arrive that precedes its next use,
+// two votes after its last read.  The geometry (pixels a group, blocks a
+// cluster, rows a block, threads a block) is ops/raster.py's
+// raster_geometry; the launch checks it and computes nothing else from the
+// tile size.  Where a block's band has more groups than 1,024 threads
+// (edges above 256 at four pixels a group, above 128 at one, with 16-block
+// clusters), each thread loops over several groups whose state waits in
+// `out` between batches (kLooped).
 // The pairs blended are the JAX kernel's: batches are the kBatch-aligned
 // windows of the list clipped to [start, start + count), raster_chunk is a
-// multiple of kBatch, and the block stops only where a whole raster_chunk
-// has ended and no pixel has T > eps.  No pair is skipped for a small
-// alpha.  Channel 3 is tile coverage, or T when a background is set.
+// multiple of kBatch, and a tile stops only where a whole raster_chunk has
+// ended and no pixel of the tile has T > eps.  No pair is skipped for a
+// small alpha.  Channel 3 is tile coverage, or T when a background is set.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kBatch = 128;  // pairs per staged batch; divides raster_chunk
 constexpr int kMaxThreads = 1024;  // the card's limit for one block
+constexpr int kMaxCluster = 16;  // Hopper's largest (non-portable) cluster
+constexpr int kPortableCluster = 8;
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -66,6 +90,42 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// The block's rank in its cluster, the cluster's blocks, and the cluster's
+// index in the grid (a launch without clusters has clusters of one block).
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_blocks() {
+  unsigned n;
+  asm("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+
+__device__ __forceinline__ unsigned cluster_index() {
+  unsigned c;
+  asm("mov.u32 %0, %%clusterid.x;" : "=r"(c));
+  return c;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;" ::: "memory");  // release
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;" ::: "memory");  // acquire
+}
+
+// Store v into `word` of the cluster's block `rank` (distributed shared memory).
+__device__ __forceinline__ void cluster_store(uint32_t* word, unsigned rank, uint32_t v) {
+  const unsigned local = static_cast<unsigned>(__cvta_generic_to_shared(word));
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(remote), "r"(v) : "memory");
 }
 
 // An integer below 2^23 as a float, exactly, without the conversion unit
@@ -85,28 +145,31 @@ __device__ __forceinline__ float ex2_approx(float x) {
 // launch argument; a template argument, so the flat frame's kernel has no
 // extra load.
 //
-// kLooped: the tile has more groups of kPx pixels than a block may have
-// threads (a 64-pixel edge is the largest whose groups all fit, at four
-// pixels a thread).  Thread tid then takes groups tid, tid + blockDim.x,
-// ..., each kPx pixels of one tile row with its own row and first column,
-// and a group's r, g, b and T wait in the tile's own rows of `out` between
-// batches: a tile of 128x128 pixels holds 64 K floats of that state, more
-// than a block's registers or shared memory.  Per batch a group loads its
-// state, blends the batch exactly as a resident group does, stores it, and
-// ORs its T > eps into the thread's vote, so a tile still stops only where
-// all of its pixels are opaque: the JAX kernel's rule, whatever the size.
-// The pixels are the same, so is every operation on them: a pixel comes out
-// of both forms bit for bit alike.
+// kCluster: the block is one of a cluster that shares the tile (see the
+// header); band_rows is its rows, and cluster c takes tile tile_order[c]
+// (the tiles by falling list length, so that the longest lists start
+// first and no long list is left to run alone at the end).  Without it
+// block b takes the whole of tile b, a thread a group.
+//
+// kLooped: the block's band has more groups of kPx pixels than the block
+// has threads.  Thread tid then takes groups tid, tid + blockDim.x, ...,
+// each kPx pixels of one tile row with its own row and first column, and a
+// group's r, g, b and T wait in the tile's own rows of `out` between
+// batches.  Per batch a group loads its state, blends the batch exactly as
+// a resident group does, stores it, and ORs its T > eps into the thread's
+// vote.  The pixels are the same, so is every operation on them: a pixel
+// comes out of every form bit for bit alike.
 #define GSR_RASTER_ARGS                                                                 \
   const uint32_t *__restrict__ pairs, long long stride, const int *__restrict__ starts, \
-      const int *__restrict__ counts, int tiles_x, int tile_size, int row_offset,        \
-      const int *__restrict__ row_offset_dev, float pix_to_clip_x, float pix_to_clip_y,  \
-      int chunk, float eps, int background, float4 *__restrict__ out
+      const int *__restrict__ counts, const int *__restrict__ tile_order, int tiles_x,   \
+      int tile_size, int band_rows, int row_offset, const int *__restrict__ row_offset_dev, \
+      float pix_to_clip_x, float pix_to_clip_y, int chunk, float eps, int background,    \
+      float4 *__restrict__ out
 #define GSR_RASTER_PASS                                                                  \
-  pairs, stride, starts, counts, tiles_x, tile_size, row_offset, row_offset_dev,         \
-      pix_to_clip_x, pix_to_clip_y, chunk, eps, background, out
+  pairs, stride, starts, counts, tile_order, tiles_x, tile_size, band_rows, row_offset,  \
+      row_offset_dev, pix_to_clip_x, pix_to_clip_y, chunk, eps, background, out
 
-template <int kPx, bool kGaussian, bool kDevOffset, bool kLooped>
+template <int kPx, bool kGaussian, bool kDevOffset, bool kCluster, bool kLooped>
 __device__ __forceinline__ void raster_tile(GSR_RASTER_ARGS) {
   __shared__ uint32_t s_raw[3][kBatch];
   // {cx, cy, na, nb2}, {nc, opacity, red, green}, blue.  Under the Gaussian
@@ -114,23 +177,30 @@ __device__ __forceinline__ void raster_tile(GSR_RASTER_ARGS) {
   __shared__ float4 s_geo[2][kBatch];
   __shared__ float4 s_col[2][kBatch];
   __shared__ float s_blue[2][kBatch];
+  // The cluster's votes: word v % 3 is nonzero after vote v where a pixel
+  // of some block of the tile had T > eps.
+  __shared__ uint32_t s_vote[3];
 
-  const int tile = blockIdx.x;
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int npix = tile_size * tile_size;
-  const int groups = npix / kPx;
+  // The tile and the block's band of its rows: all of them, or band r of a
+  // cluster, which may be short at the tile's last row.
+  const int tile = kCluster ? tile_order[cluster_index()] : blockIdx.x;
+  const int row0 = kCluster ? static_cast<int>(cluster_rank()) * band_rows : 0;
+  const int groups = kCluster ? min(band_rows, tile_size - row0) * (tile_size / kPx)
+                              : npix / kPx;
   const int start = starts[tile];
   const int count = counts[tile];
   const int tx = tile % tiles_x;
   const int ty = tile / tiles_x + (kDevOffset ? *row_offset_dev : row_offset);
-  float4* const tile_out = out + static_cast<long long>(tile) * npix;
-  // One group of pixels: kPx neighbours on one row of the tile.
+  float4* const tile_out = out + static_cast<long long>(tile) * npix + row0 * tile_size;
+  // One group of pixels: kPx neighbours on one row of the band.
   float pcy, pcx[kPx], r[kPx], g[kPx], b[kPx], trans[kPx];
   const auto place = [&](int group) {
     const int pix0 = group * kPx;
     const int col0 = tx * tile_size + pix0 % tile_size;
-    pcy = static_cast<float>(ty * tile_size + pix0 / tile_size) * pix_to_clip_y - 1.0f;
+    pcy = static_cast<float>(ty * tile_size + row0 + pix0 / tile_size) * pix_to_clip_y - 1.0f;
 #pragma unroll
     for (int p = 0; p < kPx; ++p)
       pcx[p] = static_cast<float>(col0 + p) * pix_to_clip_x - 1.0f;
@@ -143,10 +213,13 @@ __device__ __forceinline__ void raster_tile(GSR_RASTER_ARGS) {
     }
   } else {
     place(tid);
+    // A thread past a short band's groups blends pixels it never writes;
+    // its T starts at 0, so it never keeps the tile alive.
+    const float t0 = !kCluster || tid < groups ? 1.0f : 0.0f;
 #pragma unroll
     for (int p = 0; p < kPx; ++p) {
       r[p] = g[p] = b[p] = 0.0f;
-      trans[p] = 1.0f;
+      trans[p] = t0;
     }
   }
 
@@ -200,10 +273,30 @@ __device__ __forceinline__ void raster_tile(GSR_RASTER_ARGS) {
         }
       }
     };
+    // Whether one of the thread's pixels has T > eps after what it has
+    // blended so far.
+    const auto alive_now = [&](bool looped_alive) {
+      bool alive = looped_alive;
+      if constexpr (!kLooped) {
+#pragma unroll
+        for (int p = 0; p < kPx; ++p) alive |= trans[p] > eps;
+      }
+      return alive;
+    };
 
     // Looped: whether one of the thread's pixels had T > eps after the
     // last batch it blended (the vote's first turn cannot end the tile).
     bool looped_alive = false;
+    // Cluster: the votes arrived at so far (0: the start's barrier, which
+    // every block passes with its words cleared before any block writes
+    // into another's), and whether the block has yet to wait for the last.
+    int votes = 0;
+    bool waiting = false;
+    if constexpr (kCluster) {
+      if (tid < 3) s_vote[tid] = 0;
+      cluster_arrive();
+      waiting = true;
+    }
     int b0 = start / kBatch * kBatch;
     fetch(b0);
     for (int it = 0;; ++it) {
@@ -233,17 +326,24 @@ __device__ __forceinline__ void raster_tile(GSR_RASTER_ARGS) {
       const int next = b0 + kBatch;
       if (next < end) fetch(next);
 
-      // The batch's one barrier: it publishes this decode, ends the reads
-      // of the buffer the next decode overwrites, and carries the vote on
-      // everything blended so far.
-      bool alive = looped_alive;
-      if constexpr (!kLooped) {
-#pragma unroll
-        for (int p = 0; p < kPx; ++p) alive |= trans[p] > eps;
+      if constexpr (kCluster) {
+        // Publishes this decode and ends the reads of the buffer the next
+        // decode overwrites; then the cluster's vote, arrived at after the
+        // last blend, on everything blended so far.
+        __syncthreads();
+        if (waiting) {
+          cluster_wait();
+          waiting = false;
+          if (votes > 0 && s_vote[votes % 3] == 0) break;
+        }
+      } else {
+        // The batch's one barrier: it publishes this decode, ends the reads
+        // of the buffer the next decode overwrites, and carries the vote on
+        // everything blended so far.
+        const int any_alive = __syncthreads_or(alive_now(looped_alive));
+        // A whole raster_chunk has ended where this batch begins one.
+        if (it > 0 && b0 % chunk == 0 && !any_alive) break;
       }
-      const int any_alive = __syncthreads_or(alive);
-      // A whole raster_chunk has ended where this batch begins one.
-      if (it > 0 && b0 % chunk == 0 && !any_alive) break;
 
       if constexpr (kLooped) {
         looped_alive = false;
@@ -269,6 +369,22 @@ __device__ __forceinline__ void raster_tile(GSR_RASTER_ARGS) {
         blend(buf, lo, hi);
       }
       if (next >= end) break;
+      if constexpr (kCluster) {
+        // A whole raster_chunk ends where the next batch begins: vote.
+        if (next % chunk == 0) {
+          ++votes;
+          if (tid == 0) s_vote[(votes + 1) % 3] = 0;  // the next vote's word
+          const unsigned lanes = min(nthreads - (tid & ~31), 32);
+          const unsigned mask = lanes == 32 ? 0xFFFFFFFFu : (1u << lanes) - 1u;
+          if (__any_sync(mask, alive_now(looped_alive)) && (tid & 31) == 0) {
+            const unsigned blocks = cluster_blocks();
+            for (unsigned rank = 0; rank < blocks; ++rank)
+              cluster_store(&s_vote[votes % 3], rank, 1u);
+          }
+          cluster_arrive();
+          waiting = true;
+        }
+      }
       b0 = next;
     }
     cp_async_wait_all();  // a fetch may be in flight when the vote ends the tile
@@ -285,7 +401,7 @@ __device__ __forceinline__ void raster_tile(GSR_RASTER_ARGS) {
         for (int p = 0; p < kPx; ++p) w[4 * (group * kPx + p)] = covered;
       }
     }
-  } else {
+  } else if (!kCluster || tid < groups) {
     float4* dst = tile_out + tid * kPx;
 #pragma unroll
     for (int p = 0; p < kPx; ++p)
@@ -293,55 +409,139 @@ __device__ __forceinline__ void raster_tile(GSR_RASTER_ARGS) {
   }
 }
 
-// A tile whose groups all fit in one block: a thread a group, in registers.
+// A tile of 1,024 pixels or fewer: one block, a thread a group, in registers.
 template <int kPx, bool kGaussian, bool kDevOffset>
 __global__ void raster_kernel(GSR_RASTER_ARGS) {
-  raster_tile<kPx, kGaussian, kDevOffset, false>(GSR_RASTER_PASS);
+  raster_tile<kPx, kGaussian, kDevOffset, false, false>(GSR_RASTER_PASS);
 }
 
-// A larger tile: kMaxThreads threads at most, looping over the groups.
-template <int kPx, bool kGaussian, bool kDevOffset>
-__global__ void __launch_bounds__(kMaxThreads) raster_looped_kernel(GSR_RASTER_ARGS) {
-  raster_tile<kPx, kGaussian, kDevOffset, true>(GSR_RASTER_PASS);
+// A larger tile: a cluster of blocks, a band of rows each.
+template <int kPx, bool kGaussian, bool kDevOffset, bool kLooped>
+__global__ void __launch_bounds__(kMaxThreads) raster_cluster_kernel(GSR_RASTER_ARGS) {
+  raster_tile<kPx, kGaussian, kDevOffset, true, kLooped>(GSR_RASTER_PASS);
 }
 
 using RasterKernel = void (*)(GSR_RASTER_ARGS);
 
 template <int kPx, bool kGaussian>
-RasterKernel pick(bool dev_offset, bool looped) {
+RasterKernel pick(bool dev_offset, bool cluster, bool looped) {
+  if (!cluster)
+    return dev_offset ? raster_kernel<kPx, kGaussian, true> : raster_kernel<kPx, kGaussian, false>;
   if (looped)
-    return dev_offset ? raster_looped_kernel<kPx, kGaussian, true>
-                      : raster_looped_kernel<kPx, kGaussian, false>;
-  return dev_offset ? raster_kernel<kPx, kGaussian, true> : raster_kernel<kPx, kGaussian, false>;
+    return dev_offset ? raster_cluster_kernel<kPx, kGaussian, true, true>
+                      : raster_cluster_kernel<kPx, kGaussian, false, true>;
+  return dev_offset ? raster_cluster_kernel<kPx, kGaussian, true, false>
+                    : raster_cluster_kernel<kPx, kGaussian, false, false>;
+}
+
+RasterKernel pick_kernel(int px, bool gaussian, bool dev_offset, bool cluster, bool looped) {
+  if (px == 4)
+    return gaussian ? pick<4, true>(dev_offset, cluster, looped)
+                    : pick<4, false>(dev_offset, cluster, looped);
+  return gaussian ? pick<1, true>(dev_offset, cluster, looped)
+                  : pick<1, false>(dev_offset, cluster, looped);
+}
+
+// Clusters above kPortableCluster blocks need a flag on each kernel, set once.
+cudaError_t allow_large_clusters() {
+  static cudaError_t done = [] {
+    for (int px : {1, 4})
+      for (int i = 0; i < 8; ++i) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            pick_kernel(px, i & 1, i & 2, true, i & 4),
+            cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (e != cudaSuccess) return e;
+      }
+    return cudaSuccess;
+  }();
+  return done;
+}
+
+cudaLaunchConfig_t cluster_config(int blocks, int threads, int cluster, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
+// The largest cluster the raster may launch on the current card: kMaxCluster
+// where a cluster of that many 1,024-thread blocks of every cluster kernel
+// fits, else kPortableCluster.  A negative value is a CUDA error, negated.
+GSR_EXPORT int gsr_raster_max_cluster() {
+  cudaError_t e = allow_large_clusters();
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  for (int px : {1, 4})
+    for (int i = 0; i < 8; ++i) {
+      cudaLaunchAttribute attr;
+      const cudaLaunchConfig_t cfg =
+          cluster_config(kMaxCluster, kMaxThreads, kMaxCluster, nullptr, &attr);
+      int clusters = 0;
+      e = cudaOccupancyMaxActiveClusters(&clusters, pick_kernel(px, i & 1, i & 2, true, i & 4),
+                                         &cfg);
+      if (e != cudaSuccess) return -static_cast<int>(e);
+      if (clusters < 1) return kPortableCluster;
+    }
+  return kMaxCluster;
+}
+
+// px, cluster, band_rows and threads are ops/raster.py:raster_geometry's;
+// tile_order (the tiles by falling count, num_tiles of them) is read by the
+// cluster form only and may be null for the one-block form.
 GSR_EXPORT int gsr_raster(const void* pairs, long long stride,
                           const void* starts, const void* counts,
-                          int num_tiles, int tiles_x, int tile_size,
+                          const void* tile_order, int num_tiles,
+                          int tiles_x, int tile_size,
                           int row_offset, const void* row_offset_dev,
                           float pix_to_clip_x,
                           float pix_to_clip_y, int chunk, float eps,
-                          int gaussian, int background, void* out,
+                          int gaussian, int background, int px, int cluster,
+                          int band_rows, int threads, void* out,
                           void* stream) {
-  if (chunk % kBatch || tile_size < 1) return static_cast<int>(cudaErrorInvalidValue);
-  // Four pixels of one row per group need a tile edge that 4 divides.
-  const bool wide = tile_size % 4 == 0;
-  const int groups = tile_size * tile_size / (wide ? 4 : 1);
-  // Groups a thread: one while they all fit in a block, else as few as do,
-  // spread evenly over the threads.
-  const int per_thread = (groups + kMaxThreads - 1) / kMaxThreads;
-  const int threads = (groups + per_thread - 1) / per_thread;
-  const bool looped = per_thread > 1;
+  const bool geometry_ok =
+      tile_size >= 1 && (px == 4 || px == 1) && tile_size % px == 0 && cluster >= 1 &&
+      cluster <= kMaxCluster && band_rows >= 1 && (cluster - 1) * band_rows < tile_size &&
+      cluster * band_rows >= tile_size && threads >= 1 && threads <= kMaxThreads;
+  if (chunk % kBatch || !geometry_ok) return static_cast<int>(cudaErrorInvalidValue);
+  const long long band_groups = static_cast<long long>(band_rows) * (tile_size / px);
+  const bool looped = threads < band_groups;
+  // A tile in one block has a thread a group.
+  if (cluster == 1 && !looped && threads != band_groups)
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool dev = row_offset_dev != nullptr;
-  auto kernel = wide ? (gaussian ? pick<4, true>(dev, looped) : pick<4, false>(dev, looped))
-                     : (gaussian ? pick<1, true>(dev, looped) : pick<1, false>(dev, looped));
-  kernel<<<num_tiles, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(pairs), stride,
-      static_cast<const int*>(starts), static_cast<const int*>(counts),
-      tiles_x, tile_size, row_offset, static_cast<const int*>(row_offset_dev),
-      pix_to_clip_x, pix_to_clip_y, chunk,
-      eps, background, static_cast<float4*>(out));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto kernel = pick_kernel(px, gaussian, dev, cluster > 1 || looped, looped);
+  const auto* p = static_cast<const uint32_t*>(pairs);
+  const auto* st = static_cast<const int*>(starts);
+  const auto* ct = static_cast<const int*>(counts);
+  const auto* order = static_cast<const int*>(tile_order);
+  const auto* rod = static_cast<const int*>(row_offset_dev);
+  auto* o = static_cast<float4*>(out);
+  if (cluster == 1 && !looped) {
+    kernel<<<num_tiles, threads, 0, s>>>(p, stride, st, ct, order, tiles_x, tile_size,
+                                         band_rows, row_offset, rod, pix_to_clip_x,
+                                         pix_to_clip_y, chunk, eps, background, o);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (order == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster > kPortableCluster) {
+    const cudaError_t e = allow_large_clusters();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(num_tiles * cluster, threads, cluster, s, &attr);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, p, stride, st, ct, order, tiles_x,
+                                           tile_size, band_rows, row_offset, rod, pix_to_clip_x,
+                                           pix_to_clip_y, chunk, eps, background, o);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

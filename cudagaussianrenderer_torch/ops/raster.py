@@ -7,20 +7,23 @@ GaussianRender.cu:908-1034).  The port's kernel (csrc/raster.cu) keeps
 that shape, fed by the sorted, packed attribute words the sort carried
 with the keys (no gather):
 
-  * one block per tile, four neighbouring pixels of a tile row per thread
-    (one where 4 does not divide the tile edge); a tile of more such
-    groups than a block's 1,024 threads (an edge above 64, or above 32
-    where 4 does not divide it) gives each thread several groups, their
-    state kept in the output between batches, so every tile size the
-    config accepts renders; the block stages the
-    tile's [start, start + count) segment 128 pairs at a time in shared
-    memory, decoded once per pair, the next batch in flight while this one
-    blends, and every pixel blends them in order;
+  * four neighbouring pixels of a tile row per thread (one where 4 does
+    not divide the tile edge); a tile of up to 1,024 pixels is one block,
+    a larger one a thread-block cluster of Hopper, a band of the tile's
+    rows a block (``raster_geometry``), so every tile size the config
+    accepts renders with its pixels in registers (up to 256x256, or
+    128x128 at one pixel a group; beyond that a block loops over its
+    band's groups, their state kept in the output between batches); each
+    block stages the tile's [start, start + count) segment 128 pairs at a
+    time in shared memory, decoded once per pair, the next batch in
+    flight while this one blends, and every pixel blends them in order;
+  * the clusters take the tiles longest list first (an argsort of the
+    counts), so that no long list is left to run alone at the end;
   * after each whole ``raster_chunk`` of the sorted list (chunks aligned
     to multiples of raster_chunk, as the JAX kernel streams them) the
-    block votes, and stops once every pixel's transmittance is
-    <= transmittance_eps — so it exits after the same pairs as the JAX
-    kernel;
+    tile votes (a cluster's blocks through distributed shared memory),
+    and stops once every pixel's transmittance is <= transmittance_eps —
+    so it exits after the same pairs as the JAX kernel;
   * channel 3 is tile coverage, or the pixel's transmittance when a
     background is set.
 
@@ -32,6 +35,9 @@ the scan's rounding, which the JAX package bounds at 4 output LSB.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -46,6 +52,68 @@ ROW_RGBA = 2                # 0xRRGGBBAA
 PAIR_ROWS = 4
 
 CENTER_INV_SCALE = 2.0 / 65535.0
+
+# K4's launch (csrc/raster.cu): a block has at most MAX_THREADS threads; a
+# block of a cluster has CLUSTER_BLOCK_THREADS (3 to 8 warps) where the
+# tile allows it; a cluster above PORTABLE_CLUSTER blocks needs the card's
+# consent (gsr_raster_max_cluster), and MAX_CLUSTER is Hopper's largest.
+MAX_THREADS = 1024
+CLUSTER_BLOCK_THREADS = (96, 256)
+PORTABLE_CLUSTER, MAX_CLUSTER = 8, 16
+
+
+class RasterGeometry(NamedTuple):
+    """K4's launch for one tile size: ``pixels`` of a tile row a thread
+    blends (a group), ``cluster`` blocks a tile (1: one block, no cluster),
+    ``band_rows`` tile rows a block (block r of a cluster takes rows
+    [r * band_rows, (r + 1) * band_rows), the last band shorter where the
+    edge asks for it) and ``threads`` a block.  A block whose band has more
+    groups than threads loops over them, their state in the output."""
+
+    pixels: int
+    cluster: int
+    band_rows: int
+    threads: int
+
+
+def raster_geometry(tile_size: int, cluster_cap: int = MAX_CLUSTER) -> RasterGeometry:
+    """The geometry K4 launches at ``tile_size``.  A tile of up to
+    MAX_THREADS pixels is one block, a thread a group.  A larger one is a
+    cluster of 2 to ``cluster_cap`` blocks, each a band of rows: of the
+    cluster sizes whose blocks hold their band in CLUSTER_BLOCK_THREADS
+    threads, the one that leaves the fewest lanes of its warps idle (the
+    short last band's included), the smaller block at a tie (more blocks an
+    SM hide each other's barriers); where none does, ``cluster_cap``
+    blocks, each covering its band's groups in equal turns of at most
+    MAX_THREADS threads.  The kernel checks this and computes nothing else
+    from the tile size."""
+    px = 4 if tile_size % 4 == 0 else 1
+    per_row = tile_size // px
+    if tile_size * tile_size <= MAX_THREADS or cluster_cap < 2:
+        cluster_cap = 1
+
+    def split(cluster):
+        band_rows = -(-tile_size // cluster)
+        groups = band_rows * per_row
+        turns = -(-groups // MAX_THREADS)
+        return RasterGeometry(px, -(-tile_size // band_rows), band_rows, -(-groups // turns))
+
+    lo, hi = CLUSTER_BLOCK_THREADS
+    fitting = [g for g in map(split, range(2, cluster_cap + 1)) if lo <= g.threads <= hi]
+    if not fitting:
+        return split(cluster_cap)
+    return min(fitting, key=lambda g: (g.cluster * 32 * -(-g.threads // 32), g.threads))
+
+
+@functools.lru_cache(maxsize=None)
+def max_cluster(device_index: int) -> int:
+    """MAX_CLUSTER where the card runs a cluster of that many 1,024-thread
+    K4 blocks, else PORTABLE_CLUSTER (the kernel asks the card once)."""
+    with torch.cuda.device(device_index):
+        got = cb.kernel("raster", "gsr_raster_max_cluster", [])()
+    if got < 0:
+        cb.check("raster", -got)
+    return got
 
 
 def pack_pair_data(sorted_attrs, chunk: int) -> torch.Tensor:
@@ -179,19 +247,21 @@ def rasterize_tiles(
     out = torch.empty((t, npix, 4), dtype=torch.float32, device=dev)
     if t == 0:
         return out
-    fn = cb.kernel(
-        "raster", "gsr_raster",
-        [cb.P, cb.I64, cb.P, cb.P, cb.I32, cb.I32, cb.I32, cb.I32, cb.P, cb.F32, cb.F32,
-         cb.I32, cb.F32, cb.I32, cb.I32, cb.P, cb.P],
-    )
+    clustered = npix > MAX_THREADS
+    geometry = raster_geometry(
+        config.tile_size, max_cluster(dev.index) if clustered else MAX_CLUSTER)
+    # A cluster a tile, the tiles longest list first (the one-block kernel
+    # takes tile b in block b).
+    order = torch.argsort(counts, descending=True).to(torch.int32) if clustered else None
+    fn = cb.kernel("raster", "gsr_raster", RASTER_ARGTYPES)
     code = fn(
         pair_data.data_ptr(), pair_data.shape[1], starts.data_ptr(), counts.data_ptr(),
-        t, config.tiles_x, config.tile_size, 0 if on_device else row_offset,
-        row_offset.data_ptr() if on_device else None,
+        None if order is None else order.data_ptr(), t, config.tiles_x, config.tile_size,
+        0 if on_device else row_offset, row_offset.data_ptr() if on_device else None,
         2.0 / config.screen_w, 2.0 / config.screen_h,
         config.raster_chunk, config.transmittance_eps,
         int(config.falloff == "gaussian"), int(config.background is not None),
-        out.data_ptr(), cb.stream_handle(pair_data),
+        *geometry, out.data_ptr(), cb.stream_handle(pair_data),
     )
     cb.check("raster", code)
     rasterize_tiles.launches += 1
@@ -199,6 +269,10 @@ def rasterize_tiles(
 
 
 rasterize_tiles.launches = 0
+# gsr_raster's parameters, as csrc/raster.cu declares them.
+RASTER_ARGTYPES = [cb.P, cb.I64, cb.P, cb.P, cb.P, cb.I32, cb.I32, cb.I32, cb.I32, cb.P, cb.F32,
+                   cb.F32, cb.I32, cb.F32, cb.I32, cb.I32, cb.I32, cb.I32, cb.I32, cb.I32, cb.P,
+                   cb.P]
 
 
 def tiles_to_image(tile_rgba: torch.Tensor, config: RenderConfig) -> torch.Tensor:

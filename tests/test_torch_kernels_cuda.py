@@ -245,11 +245,10 @@ RASTER_CASES = [
     ("deep-list", dict(screen_size=1024), 0, (192, 9, HUGE_KW), 524288),
     ("deep-list-chunk256", dict(screen_size=1024, raster_chunk=256, background=(0.0, 0.0, 0.0)),
      0, (768, 9, HUGE_KW), 2097152),
-    # Larger tiles, each a block: 36x36 (no multiple of 4: a pixel a thread,
-    # 1,296 > 1,024 groups), 48x48 and 64x64 (a group a thread), 128x128 and
-    # a 256x256 screen as one tile (several groups a thread, their state in
-    # the output between batches); deep lists, where one vote ends a tile of
-    # many groups; a band of them from row 1.
+    # Larger tiles: 36x36, 48x48 and 64x64 (four pixels a group, 324 to
+    # 1,024 groups), 128x128 and a 256x256 screen as one tile (4,096 and
+    # 16,384 groups); deep lists, where one vote ends a tile of many groups;
+    # a band of them from row 1.
     ("tile36", dict(screen_size=144, tile_size=36), 0, SMALL, 8192),
     ("tile48-epanechnikov", dict(screen_size=192, tile_size=48, falloff="epanechnikov"), 0,
      SMALL, 8192),
@@ -261,6 +260,16 @@ RASTER_CASES = [
     ("tile36-deep-list", dict(screen_size=1008, tile_size=36), 0, (192, 9, HUGE_KW), 524288),
     ("tile128-row-offset", dict(screen_size=512, tile_size=128, background=(1.0, 1.0, 1.0)), 1,
      SMALL, 8192),
+    # Tile edges that 4 does not divide, a pixel a group: 30x30 (900 groups,
+    # within one block), 34x34 and 50x50 (1,156 and 2,500 groups); a deep
+    # list of 50x50 tiles.
+    ("tile30", dict(screen_size=120, tile_size=30), 0, SMALL, 8192),
+    ("tile34-epanechnikov", dict(screen_size=136, tile_size=34, falloff="epanechnikov"), 0,
+     SMALL, 8192),
+    ("tile50", dict(screen_size=200, tile_size=50), 0, SMALL, 8192),
+    ("tile50-deep-list", dict(screen_size=1000, tile_size=50), 0, (192, 9, HUGE_KW), 524288),
+    ("tile30-deep-list-background", dict(screen_size=990, tile_size=30, background=(1.0, 1.0, 1.0)),
+     0, (192, 9, HUGE_KW), 524288),
 ]
 # The tile sizes against the plain version within one level: every case but
 # the 16x16 defaults of other settings and the older deep lists, which keep
@@ -301,12 +310,68 @@ def test_k4_row_offset_pointer_matches_int(dev, row_offset):
     which the kernel reads from device memory, equal bit for bit to the
     same offset as a launch argument, and against its plain version by
     K4_LSB_BOUND; a background makes every pixel's transmittance show."""
-    cfg = pt.RenderConfig(screen_size=128, background=(0.2, 0.4, 0.6))
+    row_offset_pointer_case(dev, pt.RenderConfig(screen_size=128, background=(0.2, 0.4, 0.6)),
+                            row_offset, 3, K4_LSB_BOUND)
+
+
+def test_k4_row_offset_pointer_at_an_odd_tile_edge(dev):
+    """The same at 50x50 tiles (a pixel a group, more than a block's
+    1,024 threads): rows 1 and 2 of a 200x200 screen."""
+    row_offset_pointer_case(
+        dev, pt.RenderConfig(screen_size=200, tile_size=50, background=(0.2, 0.4, 0.6)),
+        1, 2, K4_TILE_LSB)
+
+
+# Deep lists under a background, so that channel 3 is each pixel's T: tiles
+# split over a cluster whose bands are not opaque together.
+CLUSTER_VOTE_CASES = [
+    ("tile64", dict(screen_size=1024, tile_size=64, background=(1.0, 1.0, 1.0))),
+    ("tile50", dict(screen_size=1000, tile_size=50, background=(1.0, 1.0, 1.0))),
+]
+# A pixel's T against the plain version's, relative, where it is above
+# CLUSTER_VOTE_T_FLOOR: the kernel's ex2.approx and fused multiply-adds
+# against exp, over lists some hundred pairs deep; a band that stopped a
+# batch early would be off by the factor that batch multiplies T by.
+CLUSTER_VOTE_T_RTOL, CLUSTER_VOTE_T_FLOOR = 1e-2, 1e-6
+
+
+@pytest.mark.parametrize("name,cfg_kw", CLUSTER_VOTE_CASES, ids=[c[0] for c in CLUSTER_VOTE_CASES])
+def test_k4_cluster_stops_a_tile_as_one(dev, name, cfg_kw):
+    """A tile split over a cluster stops where the tile's vote says: in
+    tiles where one block's band is opaque and a sibling's is not, every
+    block blends as far as the plain version blends the whole tile, so each
+    pixel's transmittance matches it."""
+    cfg = pt.RenderConfig(**cfg_kw)
+    scene = pt.random_scene(192, seed=9, device=dev, **HUGE_KW).pad_to_multiple(256)
+    cam = pt.Camera(aspect=cfg.aspect).framed(scene.bounds_min, scene.bounds_max)
+    _, attrs, starts, counts = _frame_pairs(scene, camera_tensors(cam.camera_data(), dev),
+                                            cfg, 524288)
+    pair_data = raster.pack_pair_data(attrs, cfg.raster_chunk)
+    got = raster.rasterize_tiles(pair_data, starts, counts, cfg)
+    stats = {}
+    want = raster._raster_torch(pair_data, starts, counts, cfg, cfg.total_tiles, 0, stats)
+    assert stats["pairs_blended"] < int(counts.sum())
+    geometry = raster.raster_geometry(cfg.tile_size, raster.max_cluster(dev.index))
+    assert geometry.cluster > 1
+    ts, rows = cfg.tile_size, geometry.band_rows
+    t_got, t_want = got[..., 3], want[..., 3]
+    by_row = t_want.view(-1, ts, ts)
+    opaque = torch.stack([(by_row[:, r:r + rows] <= cfg.transmittance_eps).flatten(1).all(1)
+                          for r in range(0, ts, rows)], dim=1)
+    assert bool((opaque.any(1) & ~opaque.all(1)).any()), "no tile has bands apart"
+    seen = t_want > CLUSTER_VOTE_T_FLOOR
+    rel = ((t_got - t_want).abs() / t_want.clamp(min=CLUSTER_VOTE_T_FLOOR))[seen]
+    assert float(rel.max()) <= CLUSTER_VOTE_T_RTOL
+    a = raster.tiles_to_image(got, cfg).int()
+    b = raster.tiles_to_image(want, cfg).int()
+    assert int((a - b).abs().max()) <= K4_TILE_LSB
+
+
+def row_offset_pointer_case(dev, cfg, row_offset, rows, bound):
     scene = pt.random_scene(500, seed=2, device=dev).pad_to_multiple(256)
     cam = pt.Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max)
     _, attrs, starts, counts = _frame_pairs(scene, camera_tensors(cam.camera_data(), dev),
                                             cfg, 8192)
-    rows = 3
     sl = slice(row_offset * cfg.tiles_x, (row_offset + rows) * cfg.tiles_x)
     args = (raster.pack_pair_data(attrs, cfg.raster_chunk), starts[sl].contiguous(),
             counts[sl].contiguous(), cfg)
@@ -320,7 +385,7 @@ def test_k4_row_offset_pointer_matches_int(dev, row_offset):
     plain = raster._raster_torch(*args, t, offset)
     a = raster.tiles_to_image(got, cfg).int()
     b = raster.tiles_to_image(plain, cfg).int()
-    assert int((a - b).abs().max()) <= K4_LSB_BOUND and int(b[..., :3].max()) > 0
+    assert int((a - b).abs().max()) <= bound and int(b[..., :3].max()) > 0
     with pytest.raises(ValueError):
         raster.rasterize_tiles(*args, num_tiles=t, tile_row_offset=offset.long())
 
@@ -461,6 +526,7 @@ TILE_FRAME_CASES = [
     ("tile64", dict(screen_size=256, tile_size=64)),
     ("tile128", dict(screen_size=256, tile_size=128)),
     ("tile64-banded", dict(screen_size=256, tile_size=64, sort_bands=2)),
+    ("tile50", dict(screen_size=200, tile_size=50)),
 ]
 
 
@@ -493,8 +559,9 @@ def test_renderer_at_tile_size_on_card(dev, name, cfg_kw):
 
 
 @pytest.mark.parametrize("cfg_kw", [dict(screen_size=256, tile_size=64, balanced_bands=True),
-                                    dict(screen_size=144, tile_size=36)],
-                         ids=["tile64-balanced", "tile36"])
+                                    dict(screen_size=144, tile_size=36),
+                                    dict(screen_size=136, tile_size=34, balanced_bands=True)],
+                         ids=["tile64-balanced", "tile36", "tile34-balanced"])
 def test_distributed_renderer_at_tile_size_on_card(dev, cfg_kw):
     """DistributedRenderer in a world-size-1 NCCL group at a tile size above
     32x32 (K4 reads the band's first row from device memory when the bands

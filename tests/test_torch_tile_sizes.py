@@ -6,9 +6,11 @@ Each frame is held against the JAX ``Renderer`` (Pallas in interpret mode)
 and against ``golden.golden_render`` under the suite's image rule (at most
 2% of pixels off by more than 8 levels), with the same capacity and
 candidate count in both packages; K4's plain version alone against the JAX
-raster kernel within its 4 LSB (tests/test_torch_raster.py).  A 36-pixel
+raster kernel within its 4 LSB (tests/test_torch_raster.py).  A 30-pixel
 edge is no multiple of 4, so the card's kernel blends one pixel a thread
-there; 128x128 tiles hold more pixel groups than a block has threads."""
+there; a tile of more than 1,024 pixels is a thread-block cluster on the
+card, whose launch geometry (ops/raster.py:raster_geometry) is checked here
+for every edge."""
 
 import numpy as np
 import pytest
@@ -30,6 +32,7 @@ TILE_CASES = [
     ("tile64", dict(screen_size=256, tile_size=64)),
     ("tile128", dict(screen_size=256, tile_size=128)),
     ("tile64-banded", dict(screen_size=256, tile_size=64, sort_bands=2)),
+    ("tile30-60x90", dict(screen_size=60, screen_height=90, tile_size=30)),
 ]
 
 
@@ -86,3 +89,31 @@ def test_distributed_renderer_at_tile_size(name, cfg_kw):
         assert got.shape == want.shape and want[..., 3].max() == 255
         off = (np.abs(got.astype(np.int32) - want.astype(np.int32)) > 1).any(axis=-1).mean()
         assert off < 1e-3, f"{name}: {off:.4f} of pixels off by more than 1"
+
+
+@pytest.mark.parametrize("cap", [pr.PORTABLE_CLUSTER, pr.MAX_CLUSTER])
+def test_raster_geometry_covers_every_row_once(cap):
+    """K4's launch at every tile edge from 1 to 256 (each divides a legal
+    screen: one tile of itself) and at some larger ones: up to 32 one block,
+    a thread a group; above, a cluster of 2 to ``cap`` blocks whose bands
+    cover every row of the tile once, none empty, in blocks of at most
+    1,024 threads taking their groups in equal turns, and in registers (one
+    turn) wherever 16-block clusters hold the tile's groups."""
+    for ts in [*range(1, 257), 257, 300, 512, 1020, 4080]:
+        g = pr.raster_geometry(ts, cap)
+        px = 4 if ts % 4 == 0 else 1
+        assert g.pixels == px
+        groups = g.band_rows * (ts // px)
+        if ts <= 32:
+            assert g == (px, 1, ts, ts * ts // px)
+            continue
+        assert 2 <= g.cluster <= cap
+        bands = [range(r * g.band_rows, min(ts, (r + 1) * g.band_rows)) for r in range(g.cluster)]
+        assert all(len(band) > 0 for band in bands)
+        assert [row for band in bands for row in band] == list(range(ts))
+        assert 1 <= g.threads <= pr.MAX_THREADS
+        turns = -(-groups // g.threads)
+        assert (turns - 1) * g.threads < groups <= turns * g.threads
+        assert turns == -(-groups // pr.MAX_THREADS)
+        if cap == pr.MAX_CLUSTER and ts <= (256 if px == 4 else 128):
+            assert turns == 1, ts
