@@ -596,7 +596,7 @@ def k4_call(fn, pair_data, starts, counts, cfg, geometry, out, eps=None):
                   order.data_ptr(), cfg.total_tiles, cfg.tiles_x, cfg.tile_size, 0, None,
                   2.0 / cfg.screen_w, 2.0 / cfg.screen_h, cfg.raster_chunk, cfg.transmittance_eps if eps is None else eps,
                   int(cfg.falloff == "gaussian"), int(cfg.background is not None), *geometry,
-                  out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                  out.data_ptr(), None, torch.cuda.current_stream().cuda_stream)
         if code:
             raise RuntimeError(f"launch failed: {code}")
     return call
@@ -770,10 +770,10 @@ def emit_raster(tools, scene, cam0, cfg):
         return
 
     for c in cases.values():
-        stats = {}
+        blended = torch.zeros(1, dtype=torch.int32, device=c["pair_data"].device)
         c["tiles"] = raster._raster_torch(c["pair_data"], c["starts"], c["counts"], c["cfg"],
-                                          c["cfg"].total_tiles, 0, stats)
-        c["evals"] = stats["pairs_blended"] * c["cfg"].pixels_per_tile
+                                          c["cfg"].total_tiles, 0, blended)
+        c["evals"] = int(blended) * c["cfg"].pixels_per_tile
         c["words"] = expand._emit_torch(c["rows"], c["cap"], c["cfg"])
 
     def raster_call(fn, c, out, tag, eps=None, order=None):
@@ -823,11 +823,11 @@ def emit_raster(tools, scene, cam0, cfg):
     for ts, size in K4_TILES:
         cfg_t = RenderConfig(screen_size=size, tile_size=ts)
         c = k4_tile_case(scene, cam0, cfg_t)
-        stats = {}
+        blended = torch.zeros(1, dtype=torch.int32, device=c["pair_data"].device)
         plain = raster._raster_torch(c["pair_data"], c["starts"], c["counts"], cfg_t,
-                                     cfg_t.total_tiles, 0, stats)
+                                     cfg_t.total_tiles, 0, blended)
         line = (f"  {ts}x{ts} at {size}x{size}, {cfg_t.total_tiles} tiles, "
-                f"{stats['pairs_blended'] * cfg_t.pixels_per_tile} evaluations:")
+                f"{int(blended) * cfg_t.pixels_per_tile} evaluations:")
         for tag in K4_TILE_VARIANTS:
             if tag not in libs:
                 continue
@@ -843,7 +843,7 @@ def emit_raster(tools, scene, cam0, cfg):
             out = torch.empty_like(plain)
             no_exit = device_ms(raster_call(libs["committed"][0], c, out, "committed", eps=-1.0), 5)
             evals = int(c["counts"].sum()) * cfg_t.pixels_per_tile
-            exit_evals = stats["pairs_blended"] * cfg_t.pixels_per_tile
+            exit_evals = int(blended) * cfg_t.pixels_per_tile
             line += (f" committed with no exit {no_exit:.4f} ({evals / no_exit / 1e9:.3f} G "
                      f"evaluations/ms against {exit_evals / 1e9:.3f} G in the exit's time);")
         print(line, flush=True)

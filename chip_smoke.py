@@ -440,12 +440,12 @@ def k4_tile_sizes(dev, scene, cam, sfu_rate, builds):
                                     old_tiles)
         tiles = call()
         old_call()
-        stats = {}
-        plain = raster._raster_torch(pair_data, starts, counts, cfg, cfg.total_tiles, 0, stats)
+        blended = torch.zeros(1, dtype=torch.int32, device=dev)
+        plain = raster._raster_torch(pair_data, starts, counts, cfg, cfg.total_tiles, 0, blended)
         img_plain = raster.tiles_to_image(plain, cfg).int()
         lsb = int((raster.tiles_to_image(tiles, cfg).int() - img_plain).abs().max())
         old_lsb = int((raster.tiles_to_image(old_tiles, cfg).int() - img_plain).abs().max())
-        evals = stats["pairs_blended"] * cfg.pixels_per_tile
+        evals = int(blended) * cfg.pixels_per_tile
         nbytes = (4 * 3 * min(total, cap) + 8 * cfg.total_tiles
                   + 16 * cfg.total_tiles * cfg.pixels_per_tile)
         floors = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -467,7 +467,7 @@ def k4_tile_sizes(dev, scene, cam, sfu_rate, builds):
         new_ms.append(k4_ms(call))
         bound = floors[bound_by]
         rec = dict(tile_size=ts, screen=size, tiles=cfg.total_tiles, pairs=min(total, cap),
-                   pairs_blended=stats["pairs_blended"], evaluations=evals, max_lsb=lsb,
+                   pairs_blended=int(blended), evaluations=evals, max_lsb=lsb,
                    max_abs_err=float((tiles - plain).abs().max()), old_max_lsb=old_lsb,
                    geometry=geometry._asdict(), old_geometry=old_geometry._asdict(),
                    registers=k4_registers(regs_new, ts, geometry),
@@ -2250,15 +2250,16 @@ def main() -> int:
     starts, counts = edges[:-1], edges[1:] - edges[:-1]
     pair_data = raster.pack_pair_data(attrs, config.raster_chunk)
     tiles = raster.rasterize_tiles(pair_data, starts, counts, config)
-    stats = {}
+    blended = torch.zeros(1, dtype=torch.int32, device=pair_data.device)
     t0 = time.perf_counter()
-    tiles_p = raster._raster_torch(pair_data, starts, counts, config, config.total_tiles, 0, stats)
+    tiles_p = raster._raster_torch(pair_data, starts, counts, config, config.total_tiles, 0,
+                                   blended)
     torch.cuda.synchronize()
     plain_raster_ms = (time.perf_counter() - t0) * 1e3
     img_k = raster.tiles_to_image(tiles, config)
     img_p = raster.tiles_to_image(tiles_p, config)
     lsb = int((img_k.int() - img_p.int()).abs().max())
-    evals = stats["pairs_blended"] * config.pixels_per_tile
+    evals = int(blended) * config.pixels_per_tile
     sfu_rate = sfu_results_per_s()
     kernels["raster"] = dict(
         ms=cuda_ms(lambda: raster.rasterize_tiles(pair_data, starts, counts, config), 20),
@@ -2273,7 +2274,7 @@ def main() -> int:
         max_abs_err=float((tiles - tiles_p).abs().max()),
     )
     log(f"  K4 raster {config.total_tiles} tiles: max diff {lsb} LSB (bound "
-        f"{K4_LSB_BOUND}), {stats['pairs_blended']} pairs blended before exit "
+        f"{K4_LSB_BOUND}), {int(blended)} pairs blended before exit "
         f"= {evals} pixel evaluations")
     log(f"  K4 floors: f32 {K4_OPS_PER_EVAL * evals / F32_OPS_PER_S * 1e3:.4f} ms "
         f"({K4_OPS_PER_EVAL} operations an evaluation at {F32_OPS_PER_S / 1e12:.0f} TFLOP/s), "
@@ -2288,15 +2289,16 @@ def main() -> int:
     _, hattrs, hstarts, hcounts = _frame_pairs(hscene, hcam, hcfg, hcap)
     hpair_data = raster.pack_pair_data(hattrs, hcfg.raster_chunk)
     htiles = raster.rasterize_tiles(hpair_data, hstarts, hcounts, hcfg)
-    hstats = {}
-    htiles_p = raster._raster_torch(hpair_data, hstarts, hcounts, hcfg, hcfg.total_tiles, 0, hstats)
+    hblended = torch.zeros(1, dtype=torch.int32, device=hpair_data.device)
+    htiles_p = raster._raster_torch(hpair_data, hstarts, hcounts, hcfg, hcfg.total_tiles, 0,
+                                    hblended)
     hlsb = int((raster.tiles_to_image(htiles, hcfg).int()
                 - raster.tiles_to_image(htiles_p, hcfg).int()).abs().max())
-    hevals = hstats["pairs_blended"] * hcfg.pixels_per_tile
+    hevals = int(hblended) * hcfg.pixels_per_tile
     k4_huge = device_ms(
         lambda: raster.rasterize_tiles(hpair_data, hstarts, hcounts, hcfg), 20)
     log(f"  K4 raster on the huge-splat scene: max diff {hlsb} LSB, "
-        f"{hstats['pairs_blended']} of {int(hcounts.sum())} pairs blended (longest list "
+        f"{int(hblended)} of {int(hcounts.sum())} pairs blended (longest list "
         f"{int(hcounts.max())}) = {hevals} pixel evaluations, {k4_huge} (floors: f32 "
         f"{K4_OPS_PER_EVAL * hevals / F32_OPS_PER_S * 1e3:.4f}, ex2 {hevals / sfu_rate * 1e3:.4f} ms); "
         f"at the main path's shapes "
@@ -2341,7 +2343,7 @@ def main() -> int:
             raise AssertionError(f"frame {i} is blank or misshapen: {img.shape}")
     check("frame 0 vs plain-version frame", frames[0], plain_frame0)
     stages = renderer.profile_frame(cams[1], warmup=True)
-    log("  per-stage ms (CUDA events, stages back to back): "
+    log("  per-stage ms (the frame record's device stamps): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
         + f"; sum {sum(stages.values()):.3f}")
 
@@ -2602,7 +2604,7 @@ def main() -> int:
     require(rows_now[0] == 0 and rows_now[-1] == bcfg.tiles_y and (rows_now[1:] >= rows_now[:-1]).all(),
             f"band rows {rows_now.tolist()} are not a monotone partition of the tile rows")
     bstages = brenderer.profile_frame(cams[1], warmup=True)
-    log("  per-stage ms (CUDA events, stages back to back): "
+    log("  per-stage ms (the frame record's device stamps): "
         + ", ".join(f"{k} {v:.3f}" for k, v in bstages.items())
         + f"; sum {sum(bstages.values()):.3f}")
 

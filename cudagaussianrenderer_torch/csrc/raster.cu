@@ -69,6 +69,11 @@
 // multiple of kBatch, and a tile stops only where a whole raster_chunk has
 // ended and no pixel of the tile has T > eps.  No pair is skipped for a
 // small alpha.  Channel 3 is tile coverage, or T when a background is set.
+// Where `blended` is not null, each tile adds the pairs it blended before
+// its exit to it: every thread of the tile blends the same batches (the
+// vote is the tile's, a cluster's blocks included), so thread 0 of the
+// block or of the cluster's first block adds the tile's count with one
+// atomic and no reduction.
 #include "common.cuh"
 
 namespace {
@@ -164,10 +169,10 @@ __device__ __forceinline__ float ex2_approx(float x) {
       const int *__restrict__ counts, const int *__restrict__ tile_order, int tiles_x,   \
       int tile_size, int band_rows, int row_offset, const int *__restrict__ row_offset_dev, \
       float pix_to_clip_x, float pix_to_clip_y, int chunk, float eps, int background,    \
-      float4 *__restrict__ out
+      float4 *__restrict__ out, int *__restrict__ blended
 #define GSR_RASTER_PASS                                                                  \
   pairs, stride, starts, counts, tile_order, tiles_x, tile_size, band_rows, row_offset,  \
-      row_offset_dev, pix_to_clip_x, pix_to_clip_y, chunk, eps, background, out
+      row_offset_dev, pix_to_clip_x, pix_to_clip_y, chunk, eps, background, out, blended
 
 template <int kPx, bool kGaussian, bool kDevOffset, bool kCluster, bool kLooped>
 __device__ __forceinline__ void raster_tile(GSR_RASTER_ARGS) {
@@ -228,6 +233,7 @@ __device__ __forceinline__ void raster_tile(GSR_RASTER_ARGS) {
   const float inv255 = static_cast<float>(1.0 / 255.0);
   const float epan_scale = static_cast<float>(2.0 / 7.0);
   const float fold = kGaussian ? 1.4426950408889634f : 1.0f;  // log2(e)
+  int pairs_blended = 0;
 
   if (count > 0) {
     const int end = start + count;
@@ -368,6 +374,7 @@ __device__ __forceinline__ void raster_tile(GSR_RASTER_ARGS) {
       } else {
         blend(buf, lo, hi);
       }
+      pairs_blended += hi - lo;
       if (next >= end) break;
       if constexpr (kCluster) {
         // A whole raster_chunk ends where the next batch begins: vote.
@@ -389,6 +396,8 @@ __device__ __forceinline__ void raster_tile(GSR_RASTER_ARGS) {
     }
     cp_async_wait_all();  // a fetch may be in flight when the vote ends the tile
   }
+  if (blended != nullptr && tid == 0 && pairs_blended > 0 && (!kCluster || cluster_rank() == 0))
+    atomicAdd(blended, pairs_blended);
 
   const float covered = count > 0 ? 1.0f : 0.0f;
   if constexpr (kLooped) {
@@ -496,7 +505,8 @@ GSR_EXPORT int gsr_raster_max_cluster() {
 
 // px, cluster, band_rows and threads are ops/raster.py:raster_geometry's;
 // tile_order (the tiles by falling count, num_tiles of them) is read by the
-// cluster form only and may be null for the one-block form.
+// cluster form only and may be null for the one-block form; blended (one
+// int32, or null) gains the pairs the tiles blended before their exits.
 GSR_EXPORT int gsr_raster(const void* pairs, long long stride,
                           const void* starts, const void* counts,
                           const void* tile_order, int num_tiles,
@@ -506,7 +516,7 @@ GSR_EXPORT int gsr_raster(const void* pairs, long long stride,
                           float pix_to_clip_y, int chunk, float eps,
                           int gaussian, int background, int px, int cluster,
                           int band_rows, int threads, void* out,
-                          void* stream) {
+                          void* blended, void* stream) {
   const bool geometry_ok =
       tile_size >= 1 && (px == 4 || px == 1) && tile_size % px == 0 && cluster >= 1 &&
       cluster <= kMaxCluster && band_rows >= 1 && (cluster - 1) * band_rows < tile_size &&
@@ -526,10 +536,11 @@ GSR_EXPORT int gsr_raster(const void* pairs, long long stride,
   const auto* order = static_cast<const int*>(tile_order);
   const auto* rod = static_cast<const int*>(row_offset_dev);
   auto* o = static_cast<float4*>(out);
+  auto* bl = static_cast<int*>(blended);
   if (cluster == 1 && !looped) {
     kernel<<<num_tiles, threads, 0, s>>>(p, stride, st, ct, order, tiles_x, tile_size,
                                          band_rows, row_offset, rod, pix_to_clip_x,
-                                         pix_to_clip_y, chunk, eps, background, o);
+                                         pix_to_clip_y, chunk, eps, background, o, bl);
     return static_cast<int>(cudaGetLastError());
   }
   if (order == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -541,7 +552,7 @@ GSR_EXPORT int gsr_raster(const void* pairs, long long stride,
   const cudaLaunchConfig_t cfg = cluster_config(num_tiles * cluster, threads, cluster, s, &attr);
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, p, stride, st, ct, order, tiles_x,
                                            tile_size, band_rows, row_offset, rod, pix_to_clip_x,
-                                           pix_to_clip_y, chunk, eps, background, o);
+                                           pix_to_clip_y, chunk, eps, background, o, bl);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

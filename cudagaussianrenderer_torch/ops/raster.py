@@ -25,7 +25,10 @@ with the keys (no gather):
     and stops once every pixel's transmittance is <= transmittance_eps —
     so it exits after the same pairs as the JAX kernel;
   * channel 3 is tile coverage, or the pixel's transmittance when a
-    background is set.
+    background is set;
+  * where the caller passes a counter, each tile adds the pairs it
+    blended before its exit with one atomic (a frame's pairs blended,
+    which Renderer reads back with its counts).
 
 The JAX kernel blends a chunk at a time with a log-domain scan of one
 bf16 limb (ops/raster.py:65-81 there); this kernel multiplies the
@@ -140,13 +143,12 @@ def _decode(words: torch.Tensor):
 
 
 def _raster_torch(pair_data, starts, counts, config: RenderConfig, num_tiles, row_offset,
-                  stats=None):
+                  blended=None):
     """Plain PyTorch version of K4 (see rasterize_tiles): the same
     per-pixel front-to-back recurrence, vectorized over the tiles still
     blending, one pair position at a time.  ``row_offset`` is an int or a
-    0-d int32 tensor.  A ``stats`` dict receives
-    ``pairs_blended``, the pairs blended before the early exits (each
-    costs one evaluation per pixel of its tile)."""
+    0-d int32 tensor.  The pairs blended before the early exits are added
+    into ``blended``, as the kernel adds them."""
     dev = pair_data.device
     ts = config.tile_size
     npix = ts * ts
@@ -169,7 +171,7 @@ def _raster_torch(pair_data, starts, counts, config: RenderConfig, num_tiles, ro
     active = nchunks > 0
     width = pair_data.shape[1]
     k = torch.arange(chunk, device=dev)
-    blended = torch.zeros((), dtype=torch.int64, device=dev)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
     c = 0
     while True:
         idx_t = torch.nonzero(active & (c < nchunks)).flatten()
@@ -177,7 +179,7 @@ def _raster_torch(pair_data, starts, counts, config: RenderConfig, num_tiles, ro
             break
         pos = astart[idx_t, None] + c * chunk + k                    # [Ta, chunk]
         inseg = (pos >= starts[idx_t, None]) & (pos < ends[idx_t, None])
-        blended += inseg.sum()
+        count += inseg.sum()
         words = pair_data[:3, torch.clamp(pos, max=width - 1)]       # [3, Ta, chunk]
         cx, cy, na, nb2, nc, a_s, cr, cg, cbl = _decode(words)
         a_s = torch.where(inseg, a_s, 0.0)
@@ -201,8 +203,8 @@ def _raster_torch(pair_data, starts, counts, config: RenderConfig, num_tiles, ro
         # The vote after each whole chunk: stop once every pixel is opaque.
         active[idx_t] = (tr > config.transmittance_eps).any(dim=1)
         c += 1
-    if stats is not None:
-        stats["pairs_blended"] = int(blended)
+    if blended is not None:
+        blended += count.to(blended.dtype)
     if config.background is None:
         ch3 = (counts > 0).to(torch.float32)[:, None].expand(num_tiles, npix)
     else:
@@ -218,6 +220,7 @@ def rasterize_tiles(
     *,
     num_tiles: int = None,
     tile_row_offset=0,
+    blended: torch.Tensor = None,
 ) -> torch.Tensor:
     """K4: blend each tile's sorted pair segment.
 
@@ -228,13 +231,17 @@ def rasterize_tiles(
     which the kernel reads from device memory, as the JAX kernel reads its
     SMEM scalar).  Returns [num_tiles, pixels_per_tile, 4] float32
     (r, g, b, coverage or transmittance).
+    ``blended``, a [1] int32 tensor on the pairs' device, where given,
+    gains the pairs the tiles blended before their exits: the pairs of
+    each tile's segment in the raster_chunk windows it entered, the count
+    the JAX kernel's batches define.
     Replaces ops/raster.py:_raster_kernel of the JAX package.
     """
     t = num_tiles if num_tiles is not None else config.total_tiles
     on_device = isinstance(tile_row_offset, torch.Tensor)
     row_offset = tile_row_offset if on_device else int(tile_row_offset or 0)
     if cb.dispatch_device(pair_data) == "cpu":
-        return _raster_torch(pair_data, starts, counts, config, t, row_offset)
+        return _raster_torch(pair_data, starts, counts, config, t, row_offset, blended)
     dev = pair_data.device
     cb.require(pair_data, "pair_data", torch.int32, dev)
     if pair_data.dim() != 2 or pair_data.shape[0] != PAIR_ROWS:
@@ -243,6 +250,8 @@ def rasterize_tiles(
     cb.require(counts, "counts", torch.int32, dev, (t,))
     if on_device:
         cb.require(row_offset, "tile_row_offset", torch.int32, dev, ())
+    if blended is not None:
+        cb.require(blended, "blended", torch.int32, dev, (1,))
     npix = config.pixels_per_tile
     out = torch.empty((t, npix, 4), dtype=torch.float32, device=dev)
     if t == 0:
@@ -261,7 +270,8 @@ def rasterize_tiles(
         2.0 / config.screen_w, 2.0 / config.screen_h,
         config.raster_chunk, config.transmittance_eps,
         int(config.falloff == "gaussian"), int(config.background is not None),
-        *geometry, out.data_ptr(), cb.stream_handle(pair_data),
+        *geometry, out.data_ptr(), None if blended is None else blended.data_ptr(),
+        cb.stream_handle(pair_data),
     )
     cb.check("raster", code)
     rasterize_tiles.launches += 1
@@ -272,7 +282,7 @@ rasterize_tiles.launches = 0
 # gsr_raster's parameters, as csrc/raster.cu declares them.
 RASTER_ARGTYPES = [cb.P, cb.I64, cb.P, cb.P, cb.P, cb.I32, cb.I32, cb.I32, cb.I32, cb.P, cb.F32,
                    cb.F32, cb.I32, cb.F32, cb.I32, cb.I32, cb.I32, cb.I32, cb.I32, cb.I32, cb.P,
-                   cb.P]
+                   cb.P, cb.P]
 
 
 def tiles_to_image(tile_rgba: torch.Tensor, config: RenderConfig) -> torch.Tensor:

@@ -9,7 +9,8 @@ presentation layer is the same tiny dependency-free HTTP server:
   * GET  /stream      — multipart/x-mixed-replace PNG stream (live view)
   * GET  /frame.png   — latest rendered frame (single shot)
   * POST /input       — InputState JSON {pointer, buttons, move}
-  * GET  /stats       — renderer stats JSON (fps, pairs, capacity)
+  * GET  /stats       — renderer stats JSON (fps, pairs, capacity, and the
+                         last frame's method and stage ms from its record)
 
 The render loop is the reference's frame loop: poll input →
 CameraController.update (drag/orbit/pan/WASD, CameraControls.cpp:
@@ -245,15 +246,18 @@ def serve(
             png = encode_png(image, level=stream_level)
             elapsed = time.perf_counter() - t0
             ema_fps = 0.9 * ema_fps + 0.1 * (1.0 / max(elapsed, 1e-6))
-            state.publish(
-                png,
-                {
-                    "fps": round(ema_fps, 2),
-                    "frame": rendered,
-                    "pairs": int(getattr(renderer, "last_candidates", 0)),
-                    "capacity": int(getattr(renderer, "capacity", 0)),
-                },
-            )
+            stats = {
+                "fps": round(ema_fps, 2),
+                "frame": rendered,
+                "pairs": int(getattr(renderer, "last_candidates", 0)),
+                "capacity": int(getattr(renderer, "capacity", 0)),
+            }
+            # The frame record's method and stage ms, where the renderer
+            # keeps records.
+            record = renderer.last_record() if hasattr(renderer, "last_record") else None
+            if record is not None:
+                stats["method"], stats["stage_ms"] = record["method"], record["stage_ms"]
+            state.publish(png, stats)
             rendered += 1
             # 60 FPS spin-wait cap (Demo.cpp:521-525), sleeping politely.
             remaining = dt - (time.perf_counter() - t0)

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 from cudagaussianrenderer_torch import cli
+from cudagaussianrenderer_torch import telemetry
 from cudagaussianrenderer_torch.render import STAGE_NAMES
 from cudagaussianrenderer_torch.utils.png import read_png
 from cudagaussianrenderer_tpu import cli as jcli
@@ -112,4 +113,7 @@ def test_serve_matches_jax():
     got, stats = _serve_frame(cli.main, ["--device", "cpu"])
     assert got.shape == want.shape == (32, 32, 4)
     image_close(got, want, "serve first frame")
-    assert stats["frame"] >= 0 and stats["capacity"] > 0 and set(stats) == set(jstats)
+    # The JAX viewer's stats, and the port's frame record's method and stages.
+    assert stats["frame"] >= 0 and stats["capacity"] > 0
+    assert set(stats) == set(jstats) | {"method", "stage_ms"}
+    assert stats["method"] == "eager" and list(stats["stage_ms"]) == list(telemetry.STAGES)

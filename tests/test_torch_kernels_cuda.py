@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import cudagaussianrenderer_torch as pt
+from cudagaussianrenderer_torch import telemetry
 from cudagaussianrenderer_torch.golden import golden_render, scene_to_numpy
 from cudagaussianrenderer_torch.ops import banded, expand, ranges, raster
 from cudagaussianrenderer_torch.ops.binning import (
@@ -293,15 +294,15 @@ def test_raster_matches_plain(dev, name, cfg_kw, row_offset, scene_args, capacit
     before = raster.rasterize_tiles.launches
     got = raster.rasterize_tiles(*args, num_tiles=rows * cfg.tiles_x, tile_row_offset=row_offset)
     assert raster.rasterize_tiles.launches == before + 1
-    stats = {}
-    want = raster._raster_torch(*args, rows * cfg.tiles_x, row_offset, stats)
+    blended = torch.zeros(1, dtype=torch.int32, device=dev)
+    want = raster._raster_torch(*args, rows * cfg.tiles_x, row_offset, blended)
     a = raster.tiles_to_image(got, cfg).int()
     b = raster.tiles_to_image(want, cfg).int()
     bound = K4_TILE_LSB if name.startswith(("tile", "gaussian")) else K4_LSB_BOUND
     assert int((a - b).abs().max()) <= bound
     assert int(b[..., :3].max()) > 0
     if "deep-list" in name:
-        assert stats["pairs_blended"] < int(counts[sl].sum())
+        assert int(blended) < int(counts[sl].sum())
 
 
 @pytest.mark.parametrize("row_offset", [0, 3])
@@ -348,9 +349,9 @@ def test_k4_cluster_stops_a_tile_as_one(dev, name, cfg_kw):
                                             cfg, 524288)
     pair_data = raster.pack_pair_data(attrs, cfg.raster_chunk)
     got = raster.rasterize_tiles(pair_data, starts, counts, cfg)
-    stats = {}
-    want = raster._raster_torch(pair_data, starts, counts, cfg, cfg.total_tiles, 0, stats)
-    assert stats["pairs_blended"] < int(counts.sum())
+    blended = torch.zeros(1, dtype=torch.int32, device=dev)
+    want = raster._raster_torch(pair_data, starts, counts, cfg, cfg.total_tiles, 0, blended)
+    assert int(blended) < int(counts.sum())
     geometry = raster.raster_geometry(cfg.tile_size, raster.max_cluster(dev.index))
     assert geometry.cluster > 1
     ts, rows = cfg.tile_size, geometry.band_rows
@@ -365,6 +366,36 @@ def test_k4_cluster_stops_a_tile_as_one(dev, name, cfg_kw):
     a = raster.tiles_to_image(got, cfg).int()
     b = raster.tiles_to_image(want, cfg).int()
     assert int((a - b).abs().max()) <= K4_TILE_LSB
+
+
+# K4's counter of the pairs blended before each tile's exit, against the
+# plain version's count: deep lists of large splats, where tiles exit
+# early, at 16x16 and 32x32 tiles (a block a tile) and 64x64 (a cluster).
+K4_COUNTER_CASES = [
+    ("tile16", dict(screen_size=1024)),
+    ("tile32", dict(screen_size=1024, tile_size=32)),
+    ("tile64", dict(screen_size=1024, tile_size=64)),
+]
+
+
+@pytest.mark.parametrize("name,cfg_kw", K4_COUNTER_CASES, ids=[c[0] for c in K4_COUNTER_CASES])
+def test_k4_counter_equals_the_plain_count(dev, name, cfg_kw):
+    """The card's count equals the plain version's exactly: one atomic a
+    tile (or a cluster) after the tile's last batch."""
+    cfg = pt.RenderConfig(**cfg_kw)
+    scene = pt.random_scene(192, seed=9, device=dev, **HUGE_KW).pad_to_multiple(256)
+    cam = pt.Camera(aspect=cfg.aspect).framed(scene.bounds_min, scene.bounds_max)
+    _, attrs, starts, counts = _frame_pairs(scene, camera_tensors(cam.camera_data(), dev),
+                                            cfg, 524288)
+    pair_data = raster.pack_pair_data(attrs, cfg.raster_chunk)
+    got = torch.zeros(1, dtype=torch.int32, device=dev)
+    want = torch.zeros(1, dtype=torch.int32, device=dev)
+    raster.rasterize_tiles(pair_data, starts, counts, cfg, blended=got)
+    raster._raster_torch(pair_data, starts, counts, cfg, cfg.total_tiles, 0, want)
+    assert 0 < int(want) < int(counts.sum())
+    assert int(got) == int(want)
+    geometry = raster.raster_geometry(cfg.tile_size, raster.max_cluster(dev.index))
+    assert (geometry.cluster > 1) == (name == "tile64")
 
 
 def row_offset_pointer_case(dev, cfg, row_offset, rows, bound):
@@ -631,6 +662,63 @@ def test_graphed_orbit_equals_eager(dev, cfg_kw):
     for (want, aux), got, st in zip(eager, images, stats.tolist()):
         assert torch.equal(got, want)
         assert st == [int(aux["num_pairs"]), int(aux["num_candidates"])]
+
+
+def recorded_frames(dev):
+    """A Renderer's frames of one camera at one key: the first settles the
+    capacity, then eager, capture and three replays.  Returns (the
+    renderer, the records of the last five, their methods)."""
+    scene = pt.random_scene(3000, seed=0, min_scale=0.002, max_scale=0.053, sh_degree=3,
+                            device=dev)
+    cam = pt.orbit_cameras(scene.bounds_min, scene.bounds_max, 1)[0]
+    r = pt.Renderer(scene, pt.RenderConfig(screen_size=128))
+    r.render(cam)
+    methods = []
+    for _ in range(5):
+        r.render(cam)
+        methods.append(r.last_method)
+    assert methods == ["eager", "capture", "replay", "replay", "replay"], methods
+    return r, telemetry.frames()[-5:], methods
+
+
+def test_replayed_graph_writes_a_new_ring_row(dev):
+    """Each replay of a captured frame writes its stamps into a row of its
+    own, with no host call: the row comes with the camera, the rows follow
+    each other, every stage's span is positive and each frame's stamps come
+    after the frame before it; each frame's device span lies inside its
+    host frame span, and every frame counts the same pairs blended."""
+    r, recs, _ = recorded_frames(dev)
+    assert (recs["renderer"] == r._record.id).all()
+    assert np.diff(recs["ring"]).tolist() == [1, 1, 1, 1]
+    assert r._record.ring.count == recs["ring"][-1] + 1
+    assert int(r._inputs[-1]) == recs["ring"][-1] % telemetry.RING_ROWS
+    stamps = recs["device"]
+    assert (np.diff(stamps, axis=1) >= 0).all() and (telemetry.stage_ns(recs) >= 0).all()
+    assert (stamps[1:, 0] > stamps[:-1, -1]).all()
+    spans = telemetry.device_span_ns(recs)
+    assert (spans > 0).all() and (spans <= telemetry.span_ns(recs, "frame")).all()
+    counters = recs["counters"]
+    assert (counters == counters[0]).all()
+    candidates, pairs, blended = counters[0]
+    assert 0 < blended <= pairs == candidates
+
+
+def test_capture_spans_sum_to_the_capture_span(dev):
+    """A captured frame's five spans (warm-up, sync, flush, record,
+    instantiate) run end to end inside its capture span and sum to it
+    within 1%; its first replay and its readback follow."""
+    _, recs, methods = recorded_frames(dev)
+    rec = recs[methods.index("capture")]
+    host = rec["host"]
+    parts = ["capture.warmup", "capture.sync", "capture.flush", "capture.record",
+             "capture.instantiate"]
+    spans = [host[telemetry.SPANS.index(p)] for p in parts]
+    c0, c1 = host[telemetry.CAPTURE]
+    assert c0 <= spans[0][0] and spans[-1][1] <= c1
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    total = sum(t1 - t0 for t0, t1 in spans)
+    assert abs(total - (c1 - c0)) <= 0.01 * (c1 - c0)
+    assert c1 <= host[telemetry.REPLAY][0] <= host[telemetry.READBACK][0]
 
 
 @pytest.mark.parametrize("cfg_kw,sh", [(dict(screen_size=128), 3), (dict(screen_size=128), 0),

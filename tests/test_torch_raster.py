@@ -136,9 +136,12 @@ def test_tiles_to_image_matches(cfg_kw):
 
 
 def test_raster_stats_count_blended_pairs():
+    """K4's counter from the plain version, on the JAX package's list: the
+    count the stats dict it replaces gave (every pair, no tile exits)."""
     jc, pc, attrs, starts, counts = sorted_list(dict(screen_size=128))
     pair_data = T(jr.pack_pair_data(attrs, jc.raster_chunk))
-    stats = {}
-    pr._raster_torch(pair_data, T(starts), T(counts), pc, pc.total_tiles, 0, stats)
+    blended = torch.zeros(1, dtype=torch.int32)
+    pr._raster_torch(pair_data, T(starts), T(counts), pc, pc.total_tiles, 0, blended)
     # The early exit can only cut the pairs blended.
-    assert 0 < stats["pairs_blended"] <= int(np.asarray(counts).sum())
+    assert 0 < int(blended) <= int(np.asarray(counts).sum())
+    assert int(blended) == 1657

@@ -136,7 +136,8 @@ def test_cache_visits_eager_then_capture_then_replays(cfg_kw, monkeypatch):
         checked.append(frame.args)
         return frame()
 
-    def capture_frame(frame, device, *, pool=None, checked=False, error_mode="global"):
+    def capture_frame(frame, device, *, pool=None, checked=False, error_mode="global",
+                      record=None):
         captures.append((frame.args, pool, checked, error_mode))
         graph = StandInGraph(frame)
         return graph, graph.outputs

@@ -60,7 +60,8 @@ def test_renderer_drops_its_graphs_for_a_replaced_scene(monkeypatch):
     cam = pt.Camera(aspect=1.0).framed(a.bounds_min, a.bounds_max)
     captures = []
 
-    def capture_frame(frame, device, *, pool=None, checked=False, error_mode="global"):
+    def capture_frame(frame, device, *, pool=None, checked=False, error_mode="global",
+                      record=None):
         graph = StandInGraph(frame)
         captures.append(graph)
         return graph, graph.outputs

@@ -14,6 +14,7 @@ import urllib.request
 import numpy as np
 import pytest
 
+from cudagaussianrenderer_torch import telemetry
 from cudagaussianrenderer_torch.config import RenderConfig
 from cudagaussianrenderer_torch.models.scene import random_scene
 from cudagaussianrenderer_torch.render import Renderer
@@ -68,6 +69,10 @@ def test_viewer_serves_and_responds_to_input():
         assert img0.shape == (128, 128, 4) and img0[..., 3].max() == 255
         stats = json.loads(_get(base + "/stats"))
         assert stats["capacity"] > 0 and stats["pairs"] > 0
+        # The last frame's record: how it ran and its stages' ms.
+        assert stats["method"] == "eager"
+        assert list(stats["stage_ms"]) == list(telemetry.STAGES)
+        assert all(v >= 0.0 for v in stats["stage_ms"].values())
 
         # Drag-rotate: two pointer positions on different frames while the
         # left button is held (the controller uses frame deltas).
