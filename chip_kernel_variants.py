@@ -706,13 +706,14 @@ def k4_tile_case(scene, cam, cfg):
     from cudagaussianrenderer_torch.ops import raster
     from cudagaussianrenderer_torch.ops.binning import emit_columns
     from cudagaussianrenderer_torch.ops.projection import project_splats
+    from cudagaussianrenderer_torch.ops.splat import splat_colors
     from cudagaussianrenderer_torch.render import (
-        _frame_pairs, _splat_colors, camera_tensors, round_capacity,
+        _frame_pairs, camera_tensors, round_capacity,
     )
 
     c = camera_tensors(cam.camera_data(), scene.means.device)
     clip = project_splats(scene.means, scene.scales, scene.quats, c, cfg, opacities=scene.opacities)
-    _, incl = emit_columns(clip, _splat_colors(scene, c), scene.opacities, cfg)
+    _, incl = emit_columns(clip, splat_colors(scene, c), scene.opacities, cfg)
     total = int(incl[-1])
     cap = round_capacity(Renderer._bucket(total), scene.means.device)
     _, attrs, starts, counts = _frame_pairs(scene, c, cfg, cap)
@@ -730,15 +731,16 @@ def emit_raster(tools, scene, cam0, cfg):
     from cudagaussianrenderer_torch.ops import expand, raster
     from cudagaussianrenderer_torch.ops.binning import emit_columns
     from cudagaussianrenderer_torch.ops.projection import project_splats
+    from cudagaussianrenderer_torch.ops.splat import splat_colors
     from cudagaussianrenderer_torch.render import (
-        _frame_pairs, _splat_colors, camera_tensors, round_capacity,
+        _frame_pairs, camera_tensors, round_capacity,
     )
 
     def setup(scene_, cam, cfg_, cap=None):
         c = camera_tensors(cam.camera_data(), dev)
         clip = project_splats(scene_.means, scene_.scales, scene_.quats, c, cfg_,
                               opacities=scene_.opacities)
-        cols, incl = emit_columns(clip, _splat_colors(scene_, c), scene_.opacities, cfg_)
+        cols, incl = emit_columns(clip, splat_colors(scene_, c), scene_.opacities, cfg_)
         if cap is None:  # as Renderer buckets the candidates
             cap = round_capacity(Renderer._bucket(int(incl[-1])), dev)
         rows = expand.interleave_rows(incl, tuple(x.contiguous() for x in cols), cap + 1)
@@ -880,14 +882,15 @@ def stack_compact(tools, raw_scene, scene, cam0):
         emit_columns, splat_row_packs, splat_tile_rects,
     )
     from cudagaussianrenderer_torch.ops.projection import project_splats
-    from cudagaussianrenderer_torch.render import _band_rows_tensor, _splat_colors, camera_tensors
+    from cudagaussianrenderer_torch.ops.splat import splat_colors
+    from cudagaussianrenderer_torch.render import _band_rows_tensor, camera_tensors
 
     G = 16
     bcfg = RenderConfig(sort_bands=G)
     cam = camera_tensors(cam0.camera_data(), dev)
     clip = project_splats(scene.means, scene.scales, scene.quats, cam, bcfg,
                           opacities=scene.opacities)
-    cols, _ = emit_columns(clip, _splat_colors(scene, cam), scene.opacities, bcfg)
+    cols, _ = emit_columns(clip, splat_colors(scene, cam), scene.opacities, bcfg)
     cols = tuple(c.contiguous() for c in cols)
     rects = splat_tile_rects(clip, bcfg)
     packs = splat_row_packs(clip, rects, bcfg)
@@ -1021,14 +1024,15 @@ def edges(tools, raw_scene, scene, cam0):
     from cudagaussianrenderer_torch.ops.geometry import as_u32_i64
     from cudagaussianrenderer_torch.ops.projection import project_splats
     from cudagaussianrenderer_torch.ops.sorting import sort_pairs
-    from cudagaussianrenderer_torch.render import _band_rows_tensor, _splat_colors, camera_tensors
+    from cudagaussianrenderer_torch.ops.splat import splat_colors
+    from cudagaussianrenderer_torch.render import _band_rows_tensor, camera_tensors
 
     G = 16
     cfg, bcfg = RenderConfig(), RenderConfig(sort_bands=G)
     cam = camera_tensors(cam0.camera_data(), dev)
     clip = project_splats(scene.means, scene.scales, scene.quats, cam, cfg,
                           opacities=scene.opacities)
-    colors = _splat_colors(scene, cam)
+    colors = splat_colors(scene, cam)
     keys, _, _ = sort_pairs(build_tile_pairs(clip, colors, scene.opacities, cfg, 3932160))
     r = Renderer(raw_scene, bcfg)
     for _ in range(3):  # as chip_smoke.py phase 7 settles them

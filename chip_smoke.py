@@ -9,10 +9,14 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
 
   1. card and build: the card's name and power limit, torch and CUDA
      versions, the build time, TF32 off;
-  2. kernel parity at the main path's shapes: each of K1-K4 against its
-     plain PyTorch version on the same inputs (K1-K3 exact, K4 within
-     K4_LSB_BOUND output levels), with per-kernel times; K3 and K4 also
-     on the huge-splat 1024x1024 scene, parity and time; K4 at the tiles
+  2. kernel parity at the main path's shapes: the per-splat kernel of
+     stages A-C (ops.splat.splat_columns) at the benchmark's mip360 shape
+     (2.96 M splats, SH 3, 1248x832) against its plain version (columns
+     exact, rgb within a level), with its times and byte bound; each of
+     K1-K4 against its plain PyTorch version on the same inputs (K1-K3
+     exact, K4 within K4_LSB_BOUND output levels), with per-kernel times;
+     K3 and K4 also on the huge-splat 1024x1024 scene, parity and time;
+     K4 at the tiles
      of K4_TILE_SIZES (30x30 to 256x256, the edges 30 and 50 no multiple of
      4) on the main path's scene and camera, each within K4_TILE_LSB of its
      plain version, with device time and bound, in turns with the design
@@ -29,9 +33,10 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
   4. the main path at full width: Renderer on the 1M-splat SH-3 scene at
      1024x1024 over 8 orbit cameras, ORBIT_PASSES passes through
      Renderer.render (a key's first frame eager, its second captured as a
-     CUDA graph, later ones replayed), with the launch counts of K1-K4 over
-     those passes; then a traced pass of replays, in which each of K1-K4
-     must appear once a frame; every frame byte-equal to render_frame at its
+     CUDA graph, later ones replayed), with the launch counts of the
+     per-splat kernel and K1-K4 over those passes; then a traced pass of
+     replays, in which each of those kernels must appear once a frame;
+     every frame, the traced ones too, byte-equal to render_frame at its
      key, the renderer's state to the eager controller's, and that eager
      loop timed beside it; the keys, the hit rate and memory_reserved;
   5. banded kernel parity at full-width shapes: the same scene and camera
@@ -92,10 +97,13 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
      ORBIT_PASSES passes of DistributedRenderer.render over the cameras (a
      key's first frame eager, its second captured with its collectives as
      one CUDA graph, later ones replayed), every frame byte-equal to
-     Renderer.render, ms/frame by how it ran beside the eager frame loop at
-     the same key, keys, hit rate and memory_reserved, a traced pass of
-     replays (K1-K4 and the collectives once a frame) and its idle share,
-     render_batch and a 1x1 render_frames_sharded equal to it, the K1-K4
+     Renderer.render through ops.splat's plain version of the per-splat
+     kernel (as the sharded path runs stages A-C), and Renderer.render
+     within SHARDED_LEVELS of those frames, ms/frame by how it ran beside
+     the eager frame loop at the same key, keys, hit rate and
+     memory_reserved, a traced pass of replays (K1-K4 and the collectives
+     once a frame) and its idle share, render_batch and a 1x1
+     render_frames_sharded equal to those frames too, the K1-K4
      launches of the eager and captured frames, the loopback time of the
      frame's two collectives, and DP_STEPS fit_dp steps on phase 10's
      COLMAP views against the same steps by hand (every leaf within
@@ -127,12 +135,14 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
  15. the graft entry (cudagaussianrenderer_torch.graft_entry, the JAX
      repository's __graft_entry__.py): entry()'s frame eager under the sync
      debug mode "error", captured as a CUDA graph and replayed byte-equal,
-     K1-K4 launched once each by the eager frame, the warm-up and the
-     capture, the frame against the CPU's and, with room for every
-     candidate, against golden.py (the image rule); ms a frame
-     eager and replayed, and a traced replay's device busy time; then
+     the per-splat kernel and K1-K4 launched once each by the eager frame,
+     the warm-up and the capture, the frame against the CPU's and, with
+     room for every candidate, against golden.py (the image rule); ms a
+     frame eager and replayed, and a traced pass of replays (each of those
+     kernels once a frame) with its device busy time; then
      dryrun_multichip over NCCL at the visible card count, every check
-     passing with K1-K4 launched on rank 0 (K1-K3 in the training step),
+     passing with K1-K4 launched on rank 0 (K1-K3 in the training step,
+     the per-splat kernel in check 3's single-device frame),
      its seconds by check.  Its numbers go to a ``phase 15 numbers
      [card]:`` line.
 
@@ -190,6 +200,14 @@ K4_TILE_LSB = 1
 # Device ms a trace of one K4 design at one tile size may take (at most 20
 # calls, at least 3).
 K4_TILE_TRACE_MS = 300
+# Phase 2's per-splat kernel (stages A-C, csrc/splat.cu) at the benchmark's
+# mip360 cell: its scene size (2.96 M splats, SH 3) and screen (1248x832).
+SPLAT_KERNEL_SPLATS = 2_960_000
+SPLAT_KERNEL_SCREEN = (1248, 832)
+# Bytes the per-splat kernel moves a splat at SH 3: means, scales, the
+# packed rotation, the opacity and 16 coefficients a channel in (224 B), 12
+# f32 columns and a count out (52 B).
+SPLAT_BYTES = 224 + 52
 # Phase 2's frames of the main path's scene and cameras through
 # Renderer.render at these tile edges (1024x1024).
 TILE_FRAME_EDGES = (16, 32, 64)
@@ -206,6 +224,12 @@ COLOR_ULP = 2.0 ** -24
 # Main-path frame against the plain-version frame, and the golden scenes:
 # the repo's rule (tests/test_pipeline.py:20-27).
 PIX_TOL, BAD_FRAC = 8, 0.02
+# Phase 12: Renderer.render (the per-splat kernel) against the frames that
+# the sharded path (parallel.distributed, stages A-C in plain torch) is held
+# byte-equal to: a Renderer's through the per-splat kernel's plain version.
+# Their splat colours differ by up to one level a channel (cuBLAS sums the
+# plain SH contraction in its own order); measured on the card: 1.
+SHARDED_LEVELS = 1
 # Phase 11, the differentiable path on the card against the CPU on the same
 # inputs and structure: render_diff's image and depth (absolute), and each
 # gradient's max |diff| against its leaf's max |grad| (the card sums a
@@ -386,6 +410,63 @@ def k4_registers(kernels, tile_size, geometry):
     return None
 
 
+def splat_kernel(dev):
+    """Phase 2's per-splat kernel (ops.splat.splat_columns, csrc/splat.cu)
+    at the mip360 cell's shape (SPLAT_KERNEL_SPLATS, SPLAT_KERNEL_SCREEN)
+    from camera 0 of an orbit: against its plain version on the card (the
+    counts and every column but rgb bit for bit, rgb within one level a
+    channel), its time between events and its device time, the plain
+    version's time, and its byte bound (SPLAT_BYTES a splat).  Returns the
+    kernels line's record."""
+    import torch
+
+    from cudagaussianrenderer_torch import RenderConfig, orbit_cameras, random_scene
+    from cudagaussianrenderer_torch.ops import splat
+    from cudagaussianrenderer_torch.render import camera_tensors
+
+    def bits(t):
+        return torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t).view(torch.int32)
+
+    width, height = SPLAT_KERNEL_SCREEN
+    config = RenderConfig(screen_size=width, screen_height=height)
+    scene = random_scene(SPLAT_KERNEL_SPLATS, seed=0, min_scale=0.002, max_scale=0.053,
+                         extent=4.0, sh_degree=3, device=dev)
+    cam = camera_tensors(orbit_cameras(scene.bounds_min, scene.bounds_max, 8,
+                                       aspect=config.aspect)[0].camera_data(), dev)
+    cols, counts = splat.splat_columns(scene, cam, config)
+    want_cols, want_counts = splat._splat_columns_torch(scene, cam, config, None)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(counts, want_counts)) and all(
+        torch.equal(bits(got), bits(want))
+        for i, (got, want) in enumerate(zip(cols, want_cols)) if i != splat.RGB_COLUMN)
+    got_rgb = cols[splat.RGB_COLUMN].to(torch.int64)
+    want_rgb = want_cols[splat.RGB_COLUMN].to(torch.int64)
+    levels = max(int((((got_rgb >> s) & 255) - ((want_rgb >> s) & 255)).abs().max())
+                 for s in (16, 8, 0))
+    n = scene.padded_count
+    log(f"  per-splat kernel at {n} splats SH 3, {width}x{height}: counts and columns "
+        f"bit-equal={equal}, rgb within {levels} level(s); {int(counts.sum())} candidates")
+    require(equal and levels <= 1, "the per-splat kernel differs from its plain version")
+    del want_cols, want_counts
+
+    def run():
+        return splat.splat_columns(scene, cam, config)
+
+    record = dict(
+        ms=cuda_ms(run, 20),
+        device_ms=trace_ms(run, 20),
+        plain_ms=cuda_ms(lambda: splat._splat_columns_torch(scene, cam, config, None), 3),
+        library_ms=None,
+        bytes=n * SPLAT_BYTES,
+        max_abs_err=levels,
+    )
+    bound = record["bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"  per-splat kernel: byte bound {bound:.4f} ms, device {record['device_ms']} ms = "
+        f"{100 * bound / (record['device_ms'] or record['ms']):.1f}% of it; between events "
+        f"{record['ms']:.4f} ms; plain version {record['plain_ms']:.3f} ms")
+    return record
+
+
 def k4_tile_sizes(dev, scene, cam, sfu_rate, builds):
     """Phase 2's K4 at the tile sizes of K4_TILE_SIZES: each against its
     plain version on ``scene`` (phase 4's, padded) from camera tensors
@@ -408,7 +489,8 @@ def k4_tile_sizes(dev, scene, cam, sfu_rate, builds):
     from cudagaussianrenderer_torch.ops import raster
     from cudagaussianrenderer_torch.ops.binning import emit_columns
     from cudagaussianrenderer_torch.ops.projection import project_splats
-    from cudagaussianrenderer_torch.render import _frame_pairs, _splat_colors, round_capacity
+    from cudagaussianrenderer_torch.ops.splat import splat_colors
+    from cudagaussianrenderer_torch.render import _frame_pairs, round_capacity
 
     largest = raster.max_cluster(torch.cuda.current_device())
     with tempfile.TemporaryDirectory(prefix="gsr_k4_") as scratch:
@@ -424,7 +506,7 @@ def k4_tile_sizes(dev, scene, cam, sfu_rate, builds):
         cfg = RenderConfig(screen_size=size, tile_size=ts)
         clip = project_splats(scene.means, scene.scales, scene.quats, cam, cfg,
                               opacities=scene.opacities)
-        _, incl = emit_columns(clip, _splat_colors(scene, cam), scene.opacities, cfg)
+        _, incl = emit_columns(clip, splat_colors(scene, cam), scene.opacities, cfg)
         total = int(incl[-1])
         cap = round_capacity(Renderer._bucket(total), dev)
         _, attrs, starts, counts = _frame_pairs(scene, cam, cfg, cap)
@@ -689,6 +771,7 @@ def sync(dev):
 # Each kernel's name in a profiler trace, by its wrapper (every kernel sits
 # in an anonymous namespace of its csrc/ file).
 TRACE_NAMES = {
+    "splat_columns": r"::splat_columns_kernel<",
     "tile_edges": r"::edges_kernel<",
     "interleave_rows": r"::interleave_kernel\(",
     "emit_slots": r"::emit_kernel<false>",
@@ -698,6 +781,12 @@ TRACE_NAMES = {
     "compact_rows": r"::compact_kernel<",
     "emit_slots_banded": r"::emit_kernel<true>",
 }
+# The range of a profiler trace whose device records count.  A trace's first
+# graph launch loses the records of the kernels that run in about its first
+# 0.35 ms (in phase 4: that frame's stamps and per-splat kernel; the rest of
+# the frame and every later frame keep all theirs), whatever the time since
+# the trace began; so a trace replays once before this range opens.
+COUNTED_RANGE = "chip_smoke.counted"
 # Passes of phases 4 and 7 over the orbit through Renderer.render: a key's
 # first frame runs eager, its second captures the frame, later ones replay.
 ORBIT_PASSES = 3
@@ -716,31 +805,41 @@ def orbit_passes(r, cams, passes):
     the image) and torch.cuda.memory_reserved() before the first pass and
     after each.  The images go into host memory touched beforehand, so that
     keeping them costs no frame a page fault."""
-    import copy
-
     import numpy as np
     import torch
-
-    sys.path.insert(0, str(ROOT / "tests"))
-    from torch_port_cases import renderer_state
 
     store = np.ones((passes * len(cams), r.config.screen_h, r.config.screen_w, 4), np.uint8)
     recs, reserved = [], [torch.cuda.memory_reserved()]
     for p in range(passes):
         for i, c in enumerate(cams):
             require(not r.saturated, "an adaptive Renderer saturated")
-            before = copy.copy(r)
-            t0 = time.perf_counter()
-            img = r.render(c)
-            ms = (time.perf_counter() - t0) * 1e3
+            img, rec = recorded_frame(r, c, p, i)
             store[len(recs)] = img
-            recs.append(dict(
-                p=p, i=i, method=r.last_method, ms=ms, key=before._key(),
-                rows=None if before.band_rows is None else before.band_rows.copy(),
-                before=before, after=renderer_state(r), image=store[len(recs)]))
+            recs.append(dict(rec, image=store[len(recs)]))
             del img
         reserved.append(torch.cuda.memory_reserved())
     return recs, reserved
+
+
+def recorded_frame(r, c, p, i):
+    """One frame of Renderer ``r`` from camera ``c`` (camera ``i`` of pass
+    ``p``).  Returns (the image, a record of what eager_twins needs: how it
+    ran, its host ms, its key and band rows, a copy of the renderer before
+    it and the state after it)."""
+    import copy
+
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_cases import renderer_state
+
+    before = copy.copy(r)
+    t0 = time.perf_counter()
+    img = r.render(c)
+    ms = (time.perf_counter() - t0) * 1e3
+    return img, dict(
+        p=p, i=i, method=r.last_method, ms=ms, key=before._key(),
+        rows=None if before.band_rows is None else before.band_rows.copy(),
+        before=before, after=renderer_state(r))
 
 
 def eager_twins(recs, cams):
@@ -768,44 +867,76 @@ def eager_twins(recs, cams):
     return ms
 
 
-def traced_pass(r, cams, wrappers, report=None):
-    """One more pass of ``r`` over ``cams`` in a profiler trace.  Every frame
-    must replay its graph, and every kernel of ``wrappers`` must appear once
-    a frame; the records of ``report`` (name -> regular expression) are
-    counted too.  Returns (records of each, device busy ms a frame: the
-    sum of the trace's kernel and copy records, host ms a frame)."""
+def traced_pass(r, cams, wrappers, report=None, frames=None):
+    """One more pass of ``r`` over ``cams`` in a profiler trace, after one
+    replay of the last camera in the same trace that is not counted
+    (COUNTED_RANGE).  Every frame must replay its graph, and every kernel of
+    ``wrappers`` must appear once a frame; the records of ``report`` (name
+    -> regular expression) are counted too.  Where ``frames`` is a list,
+    each counted frame's record (recorded_frame, with its image) is
+    appended to it, for eager_twins.  Returns (records of each, device busy
+    ms a frame: the sum of the counted kernel and copy records, host ms a
+    frame)."""
     import re
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     methods = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for c in cams:
-            r.render(c)
-            methods.append(r.last_method)
+        r.render(cams[-1])
+        methods.append(r.last_method)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / len(cams)
-    require(methods == ["replay"] * len(cams), f"the traced pass did not only replay: {methods}")
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with record_function(COUNTED_RANGE):
+            t0 = time.perf_counter()
+            for i, c in enumerate(cams):
+                if frames is None:
+                    r.render(c)
+                else:
+                    img, rec = recorded_frame(r, c, "traced", i)
+                    frames.append(dict(rec, image=img))
+                methods.append(r.last_method)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / len(cams)
+    require(methods == ["replay"] * (len(cams) + 1),
+            f"the traced pass did not only replay: {methods}")
+    device, launches = counted_records(prof)
     patterns = {**{w: TRACE_NAMES[w] for w in wrappers}, **(report or {})}
     records = {name: sum(1 for e in device if re.search(p, e.key)) for name, p in patterns.items()}
     busy = sum(e.self_device_time_total for e in device) / 1e3 / len(cams)
     if any(records[w] != len(cams) for w in wrappers):
         for name in sorted({e.key for e in device}):
             log(f"    traced: {name[:120]}")
+        for w in wrappers:
+            starts = [e.time_range.start for e in device if re.search(TRACE_NAMES[w], e.key)]
+            log(f"    {w}: records at {starts} us")
+        log(f"    graph launches at {launches} us")
         raise AssertionError(f"kernel records in a trace of {len(cams)} replayed frames: {records}")
     return records, busy, wall
+
+
+def counted_records(prof):
+    """The device records of a trace that start inside its COUNTED_RANGE
+    (not the range's own record on the device), and the host start of each
+    graph launch there (µs)."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    opened = min(e.time_range.start for e in events if e.key == COUNTED_RANGE)
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.key != COUNTED_RANGE and e.time_range.start >= opened]
+    launches = [e.time_range.start for e in events if e.device_type == DeviceType.CPU
+                and e.key == "cudaGraphLaunch" and e.time_range.start >= opened]
+    return device, launches
 
 
 def graphed_orbit(label, r, cams, counted):
     """Phases 4 and 7: ORBIT_PASSES passes of Renderer ``r`` over ``cams``,
     the counts of the wrappers ``counted`` set to 0 just before and read
     just after (eager frames and captures count; replays call no wrapper);
-    a traced pass of replays; every frame against its eager twin.  Returns
-    (records, launches, trace records, numbers for the log and PERF.md)."""
+    a traced pass of replays; every frame, the traced ones too, against its
+    eager twin.  Returns (records, launches, trace records, numbers for the
+    log and PERF.md)."""
     import numpy as np
 
     for fn in counted:
@@ -816,12 +947,14 @@ def graphed_orbit(label, r, cams, counted):
     log(f"  launches in {len(recs)} {label} frames through Renderer.render: {launches}")
     for name, count in launches.items():
         require(count >= 1, f"{name} never launched in the {label} main path")
-    trace, busy, traced_ms = traced_pass(r, cams, [fn.__name__ for fn in counted])
+    traced = []
+    trace, busy, traced_ms = traced_pass(r, cams, [fn.__name__ for fn in counted],
+                                         frames=traced)
     log(f"  traced pass of {len(cams)} replayed frames: kernel records {trace} (one a frame), "
         f"device busy {busy:.3f} ms/frame of {traced_ms:.3f} ms/frame traced")
-    eager_ms = eager_twins(recs, cams)
-    log(f"  every graphed frame byte-equal to render_frame at its key and band rows, the "
-        f"renderer's state equal to the eager controller's")
+    eager_ms = eager_twins(recs + traced, cams)[:len(recs)]
+    log(f"  every graphed frame and every traced replay byte-equal to render_frame at its key "
+        f"and band rows, the renderer's state equal to the eager controller's")
     two = recs[:2 * len(cams)]
     keys = [rec["key"] for rec in two]
     hits = sum(k in seen_before or k in keys[:n] for n, k in enumerate(keys))
@@ -1435,7 +1568,9 @@ def multi_device_rank(ws, n_splats, size, dp_capacity):
     ORBIT_PASSES passes of DistributedRenderer.render over the cameras (a
     key's first frame eager under the sync debug mode "error", its second
     captured as one CUDA graph with its collectives, later ones replayed;
-    K1-K4 counted), every frame against Renderer.render; the eager frame
+    K1-K4 counted), every frame against Renderer.render through the plain
+    version of the per-splat kernel, and Renderer.render itself within
+    SHARDED_LEVELS of that; the eager frame
     loop at the same key; a traced pass of replays (K1-K4 and the
     collectives' records); render_batch and render_frames_sharded on a 1x1
     mesh; the loopback times of the frame's two collectives; then DP_STEPS
@@ -1447,7 +1582,8 @@ def multi_device_rank(ws, n_splats, size, dp_capacity):
 
     from cudagaussianrenderer_torch import RenderConfig, Renderer, diff, load_posed
     from cudagaussianrenderer_torch import orbit_cameras, random_scene
-    from cudagaussianrenderer_torch.ops import expand, ranges, raster
+    from cudagaussianrenderer_torch import render as render_module
+    from cudagaussianrenderer_torch.ops import expand, ranges, raster, splat
     from cudagaussianrenderer_torch.parallel import (
         DistributedRenderer, fit_dp, make_mesh, make_mesh_2d, render_frames_sharded,
         stack_cameras,
@@ -1467,10 +1603,23 @@ def multi_device_rank(ws, n_splats, size, dp_capacity):
                          sh_degree=3, device=dev)
     config = RenderConfig(screen_size=size)
     cams = orbit_cameras(scene.bounds_min, scene.bounds_max, 8)
-    ref = Renderer(scene, config, device=dev)
-    ref.render(cams[0])
-    want = [ref.render(c) for c in cams]
-    del ref
+
+    def frames_of(columns):
+        # Renderer.render over the cameras with render's per-splat stage set
+        # to ``columns``.
+        kernel = render_module.splat_columns
+        render_module.splat_columns = columns
+        try:
+            ref = Renderer(scene, config, device=dev)
+            ref.render(cams[0])
+            return [ref.render(c) for c in cams]
+        finally:
+            render_module.splat_columns = kernel
+
+    want = frames_of(lambda s, cam, cfg, row_band=None:
+                     splat._splat_columns_torch(s, cam, cfg, row_band))
+    out["levels"] = max(int(np.abs(got.astype(np.int16) - w).max())
+                        for got, w in zip(frames_of(splat.splat_columns), want))
     dr = DistributedRenderer(scene, config, mesh=mesh)
     dr.render(cams[0])  # warm-up: sizes the per-rank capacity from its candidates
     counted = (ranges.tile_edges, expand.interleave_rows, expand.emit_slots,
@@ -1585,8 +1734,9 @@ def multi_device(dev, scene, cams, frames, config, capacity, tmp, card):
 
     from cudagaussianrenderer_torch.parallel import launch, render_band
     from cudagaussianrenderer_torch.parallel.distributed import GATHER_ROWS, render_band_tensors
+    from cudagaussianrenderer_torch.ops.splat import splat_colors
     from cudagaussianrenderer_torch.render import (
-        CAMERA_FLOATS, _splat_colors, camera_array, camera_tensors, camera_views, capture_frame,
+        CAMERA_FLOATS, camera_array, camera_tensors, camera_views, capture_frame,
         render_frame, round_capacity, run_sync_free,
     )
     from cudagaussianrenderer_torch.ops.projection import project_splats
@@ -1674,7 +1824,9 @@ def multi_device(dev, scene, cams, frames, config, capacity, tmp, card):
         f"replays {rank['ms']['replay']} ({rank['by_method']}); the eager frame loop at the "
         f"same key {rank['eager_loop_ms']:.3f}; by frame (e/c/r and pass, ms) "
         f"{rank['by_frame']}")
-    log(f"  {rank['frames_equal']} of {rank['frames']} frames byte-equal to Renderer.render; "
+    log(f"  {rank['frames_equal']} of {rank['frames']} frames byte-equal to Renderer.render "
+        f"through the per-splat kernel's plain version, Renderer.render within "
+        f"{rank['levels']} level(s) of those; "
         f"render_batch equal {rank['batch_equal']}, 1x1 render_frames_sharded equal "
         f"{rank['mesh_1x1_equal']}; per-rank capacity {rank['capacity']}; {rank['keys']} "
         f"distinct keys over two passes, hit rate {rank['hit_rate']:.3f}; memory_reserved before "
@@ -1686,9 +1838,14 @@ def multi_device(dev, scene, cams, frames, config, capacity, tmp, card):
             f"traced; idle share replayed {rank['idle_share_replayed']:.3f}, eager loop "
             f"{rank['idle_share_eager_loop']:.3f}")
     require(rank["frames_equal"] == rank["frames"],
-            f"{rank['frames'] - rank['frames_equal']} sharded frames differ from Renderer.render")
+            f"{rank['frames'] - rank['frames_equal']} sharded frames differ from Renderer.render "
+            "through the plain per-splat stage")
+    require(rank["levels"] <= SHARDED_LEVELS,
+            f"Renderer.render {rank['levels']} levels from its frames through the plain "
+            "per-splat stage")
     require(rank["batch_equal"] == len(cams) and rank["mesh_1x1_equal"] == len(cams),
-            "render_batch or the 1x1 mesh differ from Renderer.render")
+            "render_batch or the 1x1 mesh differ from Renderer.render through the plain "
+            "per-splat stage")
     if dev.type == "cuda":
         require(rank["by_method"]["replay"] >= len(cams) and rank["by_method"]["capture"] >= 1,
                 f"the sharded frames did not capture and replay: {rank['by_method']}")
@@ -1730,7 +1887,7 @@ def multi_device(dev, scene, cams, frames, config, capacity, tmp, card):
     flat_ms = busy_ms(lambda: render_frame(scene, cds[0], config, capacity, device=dev))
 
     def stages_ab(s, cam):
-        return _splat_colors(s, cam), project_splats(s.means, s.scales, s.quats, cam, config,
+        return splat_colors(s, cam), project_splats(s.means, s.scales, s.quats, cam, config,
                                                       opacities=s.opacities)
 
     cam0 = camera_tensors(cds[0], dev)
@@ -1975,28 +2132,50 @@ def measure_harness(dev, card, goldens=None):
 ENTRY_FRAMES = 20
 
 
+def entry_trace(graph, frames):
+    """Phase 15's trace: ``graph`` (the graft entry's frame, captured)
+    replayed once, then ``frames`` times inside COUNTED_RANGE, in a
+    profiler trace.  Returns (the counted records of each kernel of
+    graft_entry.KERNELS by wrapper name, device busy ms a frame)."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from cudagaussianrenderer_torch import graft_entry
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+        with record_function(COUNTED_RANGE):
+            for _ in range(frames):
+                graph.replay()
+            torch.cuda.synchronize()
+    device, _ = counted_records(prof)
+    records = {k.__name__: sum(1 for e in device if re.search(TRACE_NAMES[k.__name__], e.key))
+               for k in graft_entry.KERNELS}
+    return records, sum(e.self_device_time_total for e in device) / 1e3 / frames
+
+
 def graft_entry_phase(dev, card):
     """Phase 15: the graft entry (cudagaussianrenderer_torch.graft_entry,
     the JAX repository's __graft_entry__.py).  entry()'s frame (4,096
     splats SH 2, 256x256) through graft_entry.capture_entry: once eagerly
     under the sync debug mode "error", then captured as a CUDA graph and
-    replayed, byte-equal, with the counts of K1-K4 set to 0 just before and
-    read just after (each 3: the eager frame, the capture's warm-up and the
-    capture); the frame against the same function on the CPU (the kernels'
-    plain versions) and, with room for every candidate (the entry's list
+    replayed, byte-equal, with the counts of graft_entry.KERNELS (the
+    per-splat kernel and K1-K4) set to 0 just before and read just after
+    (each 3: the eager frame, the capture's warm-up and the capture); the
+    frame against the same function on the CPU (the kernels' plain
+    versions) and, with room for every candidate (the entry's list
     saturates, as the JAX entry's does), against golden.py, each by the
-    image rule; ms a frame,
-    eager and replayed (host clock, best of 3 passes of ENTRY_FRAMES
-    frames), and the device busy time of a traced pass of replays, each of
-    K1-K4 once a frame.  Then dryrun_multichip at the visible card count
-    over NCCL: its five checks (the 2-D mesh batch only on an even count of
-    4 or more), seconds and K1-K4 launches of each on rank 0.  Its numbers
-    go to a ``phase 15 numbers [card]:`` line."""
-    import re
-
+    image rule; ms a frame, eager and replayed (host clock, best of 3
+    passes of ENTRY_FRAMES frames), and the device busy time of a traced
+    pass of replays (entry_trace), each of those kernels once a frame.
+    Then dryrun_multichip at the visible card count over NCCL: its five
+    checks (the 2-D mesh batch only on an even count of 4 or more),
+    seconds and launches of each on rank 0.  Its numbers go to a ``phase
+    15 numbers [card]:`` line."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from cudagaussianrenderer_torch import RenderConfig, graft_entry
     from cudagaussianrenderer_torch.golden import golden_render, scene_to_numpy
@@ -2011,11 +2190,11 @@ def graft_entry_phase(dev, card):
     log(f"  entry frame {tuple(eager.shape)}: eager under the sync debug mode, captured and "
         f"replayed byte-equal; launches {launches}")
     require(all(n == 3 for n in launches.values()),
-            f"the entry's eager frame, warm-up and capture did not launch K1-K4 once each: "
+            f"the entry's eager frame, warm-up and capture did not launch each kernel once: "
             f"{launches}")
     # The JAX entry's list saturates (its capacity is capacity_factor 8 slots
     # a splat): the frame is held against the same function on the CPU, the
-    # plain versions of K1-K4, and the same frame with room for every
+    # kernels' plain versions, and the same frame with room for every
     # candidate against golden.py.
     scene, cam = args
     cpu_fn, cpu_args = graft_entry.entry("cpu")
@@ -2045,15 +2224,8 @@ def graft_entry_phase(dev, card):
 
     eager_ms = best_ms(lambda: fn(*args))
     replay_ms = best_ms(graph.replay)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(ENTRY_FRAMES):
-            graph.replay()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    records = {k.__name__: sum(1 for e in device if re.search(TRACE_NAMES[k.__name__], e.key))
-               for k in counted}
-    busy = sum(e.self_device_time_total for e in device) / 1e3 / ENTRY_FRAMES
-    require(torch.equal(replayed, eager), "a timed replay of the entry frame differs")
+    records, busy = entry_trace(graph, ENTRY_FRAMES)
+    require(torch.equal(replayed, eager), "a timed or traced replay of the entry frame differs")
     require(all(n == ENTRY_FRAMES for n in records.values()),
             f"kernel records in a trace of {ENTRY_FRAMES} replayed entry frames: {records}")
     log(f"  entry ms/frame [{card}]: eager {eager_ms:.4f}, replayed {replay_ms:.4f}; device busy "
@@ -2068,8 +2240,11 @@ def graft_entry_phase(dev, card):
     require(list(out) == want_checks, f"dryrun_multichip({n}) ran {list(out)}")
     for name, c in out.items():
         # The training step blends in plain PyTorch: K4 runs only in frames.
+        # The sharded frames and the step keep stages A-C in plain PyTorch:
+        # the per-splat kernel runs only in check 3's single-device frame.
         need = [k.__name__ for k in counted
-                if not (name == "dp_step" and k is graft_entry.rasterize_tiles)]
+                if not (name == "dp_step" and k is graft_entry.rasterize_tiles)
+                and not (name != "parity" and k is graft_entry.splat_columns)]
         require(all(c["launches"][k] >= 1 for k in need),
                 f"dryrun check {name} did not launch {need}: {c['launches']}")
     checks = {name: {k: v for k, v in c.items() if k != "image"} for name, c in out.items()}
@@ -2091,15 +2266,16 @@ def main() -> int:
 
     from cudagaussianrenderer_torch import RenderConfig, Renderer, orbit_cameras, random_scene
     from cudagaussianrenderer_torch.models.camera import Camera
-    from cudagaussianrenderer_torch.ops import banded, expand, ranges, raster
+    from cudagaussianrenderer_torch.ops import banded, expand, ranges, raster, splat
     from cudagaussianrenderer_torch.ops.binning import (
         TilePairs, emit_columns, splat_row_packs, splat_tile_rects,
     )
     from cudagaussianrenderer_torch.ops.geometry import as_u32_i64
     from cudagaussianrenderer_torch.ops.projection import project_splats
     from cudagaussianrenderer_torch.ops.sorting import sort_pairs
+    from cudagaussianrenderer_torch.ops.splat import splat_colors
     from cudagaussianrenderer_torch.render import (
-        _band_rows_tensor, _frame_pairs, _splat_colors, camera_tensors, round_capacity,
+        _band_rows_tensor, _frame_pairs, camera_tensors, round_capacity,
     )
     from cudagaussianrenderer_torch.utils import cuda_build
 
@@ -2140,7 +2316,7 @@ def main() -> int:
 
     s = renderer.scene
     cam = camera_tensors(cams[0].camera_data(), dev)
-    colors = _splat_colors(s, cam)
+    colors = splat_colors(s, cam)
     clip = project_splats(s.means, s.scales, s.quats, cam, config, opacities=s.opacities)
     cols, incl = emit_columns(clip, colors, s.opacities, config)
     cols = tuple(c.contiguous() for c in cols)
@@ -2148,7 +2324,7 @@ def main() -> int:
     capacity = round_capacity(Renderer._bucket(total), dev)
     n = incl.shape[0]
     log(f"camera 0: {total} candidate pairs, capacity {capacity}")
-    kernels = {}
+    kernels = {"splat": splat_kernel(dev)}
 
     # K2
     rows = expand.interleave_rows(incl, cols, capacity + 1)
@@ -2329,8 +2505,8 @@ def main() -> int:
 
     # ---- 4. main path at full width ---------------------------------------
     log("== 4. main path: Renderer, 1M splats SH-3, 1024x1024, 8 orbit cameras")
-    counted = (ranges.tile_edges, expand.interleave_rows, expand.emit_slots,
-               raster.rasterize_tiles)
+    counted = (splat.splat_columns, ranges.tile_edges, expand.interleave_rows,
+               expand.emit_slots, raster.rasterize_tiles)
     renderer.render(cams[0])  # warm-up: sizes the capacity from its candidates
     torch.cuda.synchronize()
     recs, launches, trace, flat_numbers = graphed_orbit("flat", renderer, cams, counted)
@@ -2705,6 +2881,9 @@ def main() -> int:
     P = "cudagaussianrenderer_tpu/ops/"
     # name -> (source file, counted wrapper, path that runs it, TPU kernel)
     names = {
+        "splat": ("splat", "splat_columns", (launches, trace),
+                  "none: stages A-C are plain jnp there (ops/sh.py, ops/projection.py, "
+                  "ops/binning.py)"),
         "edges": ("edges", "tile_edges", (launches, trace), P + "ranges.py:40"),
         "interleave": ("interleave", "interleave_rows", (launches, trace), P + "expand.py:107"),
         "emit": ("emit", "emit_slots", (launches, trace), P + "expand.py:206"),
@@ -2738,7 +2917,7 @@ def main() -> int:
             library_ms=k["library_ms"],
         ))
     # K1 also runs once per banded frame, in its segmented mode.
-    line[0].update(banded_launches=blaunches["tile_edges"],
+    line[1].update(banded_launches=blaunches["tile_edges"],
                    banded_replayed_launches=btrace["tile_edges"], **k1b)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"multi_device": multi}), flush=True)

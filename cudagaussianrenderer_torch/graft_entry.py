@@ -14,7 +14,7 @@ image's shape.  The second runs ``dryrun_multichip(N)``: N ranks through
 ``parallel.launch.spawn``, NCCL with a card a rank (N defaults to the
 visible cards, and more ranks than cards raises), or gloo ranks on the CPU
 with ``--device cpu``; it ends with a JSON line of rank 0's numbers by
-check (seconds, K1-K4 launches, pairs).
+check (seconds, launches of the per-splat kernel and K1-K4, pairs).
 
 The JAX ``fn`` is jittable; its counterpart here is capturable: ``fn(scene,
 cam)`` takes the camera as device tensors (``render.camera_tensors``) and
@@ -44,6 +44,7 @@ from .models.scene import random_scene
 from .ops.expand import emit_slots, interleave_rows
 from .ops.ranges import tile_edges
 from .ops.raster import rasterize_tiles
+from .ops.splat import splat_columns
 from .parallel import launch
 from .parallel.distributed import (
     make_mesh, make_mesh_2d, render_frame_sharded, render_frames_sharded, stack_cameras,
@@ -52,8 +53,9 @@ from .parallel.train import make_train_step_dp, view_batch
 from .render import camera_tensors, capture_frame, render_frame, render_frame_tensors, run_sync_free
 from .utils.device import resolve_device
 
-# The kernels of this path (K1-K4), whose launches each check counts.
-KERNELS = (tile_edges, interleave_rows, emit_slots, rasterize_tiles)
+# The kernels of this path (the per-splat kernel of stages A-C, K1-K4),
+# whose launches each check counts.
+KERNELS = (splat_columns, tile_edges, interleave_rows, emit_slots, rasterize_tiles)
 
 
 def entry(device=None):
@@ -219,8 +221,8 @@ def dryrun_multichip(n_devices: Optional[int] = None, device=None) -> dict:
     default), gloo ranks on "cpu".  Check 4, the 2-D mesh batch, runs
     only on an even count of 4 or more.  Raises if a check fails or a rank
     raises.  Returns rank 0's numbers by check ("uniform", "balanced",
-    "parity", "mesh_2d", "dp_step"), each with its seconds and K1-K4
-    launches on that rank, and check 1's image under "uniform"."""
+    "parity", "mesh_2d", "dp_step"), each with its seconds and the
+    launches of KERNELS on that rank, and check 1's image under "uniform"."""
     dev = resolve_device(device)
     if n_devices is None:
         if dev.type != "cuda":

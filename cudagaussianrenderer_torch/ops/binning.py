@@ -273,6 +273,22 @@ def pack_columns(
     )
 
 
+def columns_and_counts(
+    clip_data: SplatClipData,
+    colors: torch.Tensor,
+    opacities: torch.Tensor,
+    config: RenderConfig,
+    *,
+    row_band=None,
+):
+    """Rects and row packs, in torch: (the 13 flat [N] f32 columns of
+    pack_columns, [N] int32 exact candidate counts).  The plain version of
+    the binning half of ops.splat.splat_columns' kernel."""
+    rects = splat_tile_rects(clip_data, config, row_band=row_band)
+    row_packs = splat_row_packs(clip_data, rects, config)
+    return pack_columns(clip_data, colors, opacities, config, rects, row_packs), row_packs.counts
+
+
 def emit_columns(
     clip_data: SplatClipData,
     colors: torch.Tensor,
@@ -281,26 +297,19 @@ def emit_columns(
     *,
     row_band=None,
 ):
-    """Rects, row packs and the candidate prefix sum, in torch: the inputs
-    of ops.expand.emit_pairs — (13 flat [N] f32 columns in R_* order
-    without R_IDX, [N] int32 inclusive candidate prefix)."""
-    rects = splat_tile_rects(clip_data, config, row_band=row_band)
-    row_packs = splat_row_packs(clip_data, rects, config)
-    incl = torch.cumsum(row_packs.counts, 0, dtype=torch.int32)
-    return pack_columns(clip_data, colors, opacities, config, rects, row_packs), incl
+    """columns_and_counts with the candidate prefix sum: the inputs of
+    ops.expand.emit_pairs — (13 flat [N] f32 columns in R_* order without
+    R_IDX, [N] int32 inclusive candidate prefix)."""
+    cols, counts = columns_and_counts(clip_data, colors, opacities, config, row_band=row_band)
+    return cols, torch.cumsum(counts, 0, dtype=torch.int32)
 
 
-def build_tile_pairs(
-    clip_data: SplatClipData,
-    colors: torch.Tensor,
-    opacities: torch.Tensor,
-    config: RenderConfig,
-    capacity: int,
-    *,
-    row_band=None,
-) -> TilePairs:
-    """The fixed-capacity pair list: emit_columns, then
-    ops.expand.emit_pairs (kernels K2 and K3) for the slot arrays."""
+def build_tile_pairs_from_columns(cols, counts: torch.Tensor, capacity: int,
+                                  config: RenderConfig) -> TilePairs:
+    """The fixed-capacity pair list of a frame's per-splat columns and
+    exact candidate counts (columns_and_counts, or ops.splat.splat_columns):
+    their prefix sum, then ops.expand.emit_pairs (kernels K2 and K3) for
+    the slot arrays."""
     from .expand import (
         OUT_CONIC,
         OUT_CXCY,
@@ -311,7 +320,7 @@ def build_tile_pairs(
         emit_pairs,
     )
 
-    cols, incl = emit_columns(clip_data, colors, opacities, config, row_band=row_band)
+    incl = torch.cumsum(counts, 0, dtype=torch.int32)
     total = incl[-1]
     out = emit_pairs(cols, incl, capacity, config)
 
@@ -329,3 +338,18 @@ def build_tile_pairs(
         # Emission fills exactly the slots below min(total, capacity).
         num_pairs=torch.clamp(total, max=capacity),
     )
+
+
+def build_tile_pairs(
+    clip_data: SplatClipData,
+    colors: torch.Tensor,
+    opacities: torch.Tensor,
+    config: RenderConfig,
+    capacity: int,
+    *,
+    row_band=None,
+) -> TilePairs:
+    """The fixed-capacity pair list: columns_and_counts, then
+    build_tile_pairs_from_columns."""
+    cols, counts = columns_and_counts(clip_data, colors, opacities, config, row_band=row_band)
+    return build_tile_pairs_from_columns(cols, counts, capacity, config)

@@ -64,9 +64,10 @@ from ..ops.projection import SplatClipData, project_splats
 from ..ops.ranges import tile_ranges
 from ..ops.raster import pack_pair_data, rasterize_tiles, tiles_to_image
 from ..ops.sorting import sort_pairs
+from ..ops.splat import splat_colors
 from ..render import (
-    CAMERA_FLOATS, _splat_colors, camera_array, camera_tensors, camera_views, round_capacity,
-    run_graphed, warn_capacity_ceiling,
+    CAMERA_FLOATS, camera_array, camera_tensors, camera_views, round_capacity, run_graphed,
+    warn_capacity_ceiling,
 )
 from ..utils.device import resolve_device
 
@@ -326,7 +327,7 @@ def render_band_tensors(scene: GaussianScene, cam: Dict[str, torch.Tensor],
     copies nothing from the host and reads nothing back, so a CUDA graph
     can capture it."""
     capacity = round_capacity(capacity, scene.means.device)
-    colors = _splat_colors(scene, cam)
+    colors = splat_colors(scene, cam)
     clip = project_splats(scene.means, scene.scales, scene.quats, cam, config,
                           opacities=scene.opacities)
     max_rows = _balanced_rows(config, n_dev)
@@ -374,7 +375,7 @@ def _render_shard(shard: GaussianScene, cam: Dict[str, torch.Tensor], config: Re
     0-d int32 tensors).  No host read and no host-to-device copy between
     its first kernel and its last: a CUDA graph can capture it."""
     n_dev, idx = mesh.shape[axis], mesh.index(axis)
-    colors = _splat_colors(shard, cam)
+    colors = splat_colors(shard, cam)
     clip = project_splats(shard.means, shard.scales, shard.quats, cam, config,
                           opacities=shard.opacities)
     packed = torch.cat([torch.stack(tuple(clip)), colors, shard.opacities[None]])

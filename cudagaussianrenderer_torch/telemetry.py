@@ -35,6 +35,13 @@ is called; a record older than RING_ROWS frames of its renderer has lost
 its row and reads -1.  On the CPU a stamp is ``perf_counter_ns``, written
 into the record when the frame ends.
 
+On a flat frame, stages A-C's per-splat work is one kernel
+(ops.splat.splat_columns) between stamps 0 and 1: the first STAGES span
+reads that kernel (colour, projection and the per-splat binning), the
+second only the gap between two stamps, and the third stage C's prefix
+sum with kernels K2 and K3.  A banded frame runs A, B and C apart, one a
+span.
+
 A frame's device span is its first stamp to its last: the frame's
 kernels, and not the copies of its inputs and its readback around them
 (a reader that wants those takes their device time from a trace).  On an

@@ -33,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
-SOURCES = ("edges", "interleave", "emit", "raster", "stack", "compact", "stamp")
+SOURCES = ("edges", "interleave", "emit", "raster", "stack", "compact", "stamp", "splat")
 BASE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -41,8 +41,9 @@ BASE_FLAGS = (
 )
 # The emit kernel must round every float op of its packers separately, as
 # the JAX package and the plain PyTorch version do: no contraction into
-# fused multiply-adds.
-EXTRA_FLAGS = {"emit": ("--fmad=false",)}
+# fused multiply-adds.  So must the per-splat kernel, whose columns equal
+# the plain path's bit for bit.
+EXTRA_FLAGS = {"emit": ("--fmad=false",), "splat": ("--fmad=false",)}
 
 
 def nvcc_path() -> str:

@@ -15,20 +15,20 @@ import torch
 import cudagaussianrenderer_torch as pt
 from cudagaussianrenderer_torch import telemetry
 from cudagaussianrenderer_torch.golden import golden_render, scene_to_numpy
-from cudagaussianrenderer_torch.ops import banded, expand, ranges, raster
+from cudagaussianrenderer_torch.ops import banded, expand, ranges, raster, splat
 from cudagaussianrenderer_torch.ops.binning import (
     emit_columns, pack_columns, splat_row_packs, splat_tile_rects,
 )
 from cudagaussianrenderer_torch.ops.projection import project_splats
-from cudagaussianrenderer_torch.render import (
-    _band_rows_tensor, _frame_pairs, _splat_colors, camera_tensors,
-)
+from cudagaussianrenderer_torch.ops.splat import splat_colors
+from cudagaussianrenderer_torch.render import _band_rows_tensor, _frame_pairs, camera_tensors
 
 from torch_port_cases import (
     card_failed_sharded_capture_case, card_fit_dp_case, card_graphed_dp_case,
     card_graphed_renderer_case, card_sharded_case, dp_graph_ranks_case, fit_step_pair,
     mesh_frames_case, anisotropic, rendered_views, run_step_pair,
-    COMPACT_CASES, COMPACT_CG, EDGE_CORNER_CASES, compact_counts, cull_run, edge_corner_keys, widen,
+    COMPACT_CASES, COMPACT_CG, EDGE_CORNER_CASES, SPLAT_CASES, column_bits, compact_counts,
+    cull_run, edge_corner_keys, splat_case, widen,
 )
 
 pytestmark = pytest.mark.cuda
@@ -63,7 +63,7 @@ def stage_c_inputs(dev, n, seed, cfg, scene_kw=None, edit=None):
         fields = {f: getattr(clip, f).clone() for f in clip._fields}
         edit(fields)
         clip = clip._replace(**fields)
-    cols, incl = emit_columns(clip, _splat_colors(scene, c), scene.opacities, cfg)
+    cols, incl = emit_columns(clip, splat_colors(scene, c), scene.opacities, cfg)
     return tuple(x.contiguous() for x in cols), incl
 
 
@@ -103,6 +103,63 @@ def test_interleave_and_emit_match_plain(dev, name, cfg_kw, n, seed, scene_kw, c
         assert torch.equal(got, want)
     assert (expand.interleave_rows.launches, expand.emit_slots.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("case", SPLAT_CASES, ids=[c[0] for c in SPLAT_CASES])
+def test_splat_columns_match_plain(dev, case):
+    """The per-splat kernel against its plain version on the same card: the
+    counts and every column but rgb bit for bit, rgb within one level a
+    channel (cuBLAS sums the plain SH contraction in its own order)."""
+    scene, cam, config, band = splat_case(case, dev)
+    before = splat.splat_columns.launches
+    cols, counts = splat.splat_columns(scene, cam, config, row_band=band)
+    torch.cuda.synchronize()
+    assert splat.splat_columns.launches == before + 1
+    want_cols, want_counts = splat._splat_columns_torch(scene, cam, config, band)
+    assert torch.equal(counts, want_counts)
+    for i, (got, want) in enumerate(zip(cols, want_cols)):
+        if i != splat.RGB_COLUMN:
+            assert torch.equal(column_bits(got), column_bits(want)), f"column {i}"
+    got_rgb = cols[splat.RGB_COLUMN].to(torch.int64)
+    want_rgb = want_cols[splat.RGB_COLUMN].to(torch.int64)
+    for shift in (16, 8, 0):
+        level = ((got_rgb >> shift) & 255) - ((want_rgb >> shift) & 255)
+        assert int(level.abs().max()) <= 1
+
+
+def test_splat_columns_reject_bad_arguments(dev):
+    import dataclasses
+
+    scene, cam, config, _ = splat_case(SPLAT_CASES[0], dev)
+    bad_scenes = {
+        "is on cpu": dataclasses.replace(scene, scales=scene.scales.cpu()),
+        "dtype": dataclasses.replace(scene, opacities=scene.opacities.double()),
+        "sh has shape": dataclasses.replace(scene, sh=scene.sh[:, :9]),
+        "contiguous": dataclasses.replace(scene, means=scene.means.t().contiguous().t()),
+    }
+    for match, bad in bad_scenes.items():
+        with pytest.raises(ValueError, match=match):
+            splat.splat_columns(bad, cam, config)
+    with pytest.raises(ValueError, match="camera position"):
+        splat.splat_columns(scene, dict(cam, position=cam["position"].cpu()), config)
+    with pytest.raises(ValueError, match="dtype"):
+        splat.splat_columns(scene, cam, config,
+                            row_band=(torch.tensor(0, device=dev), torch.tensor(9, device=dev)))
+    with pytest.raises(ValueError, match="shape"):
+        splat.splat_columns(scene, cam, config, row_band=(
+            torch.zeros(1, dtype=torch.int32, device=dev), 9))
+
+
+def test_splat_columns_read_a_camera_of_separate_tensors(dev):
+    """A camera dict that is no view of one buffer is gathered into one on
+    the card: the same columns as from camera_tensors' views."""
+    scene, cam, config, _ = splat_case(SPLAT_CASES[0], dev)
+    separate = {k: v.clone() for k, v in cam.items()}
+    want = splat.splat_columns(scene, cam, config)
+    got = splat.splat_columns(scene, separate, config)
+    assert torch.equal(got[1], want[1])
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(column_bits(g), column_bits(w))
 
 
 @pytest.mark.parametrize("num_probes,shift,n", [(4097, 19, 100_000), (65, 0, 777), (2, 0, 3)])
@@ -538,14 +595,14 @@ def test_banded_frame_on_card_matches_golden_through_the_kernels(dev):
 
 
 def test_frame_on_card_matches_golden_through_the_kernels(dev):
-    counted = (ranges.tile_edges, expand.interleave_rows, expand.emit_slots,
-               raster.rasterize_tiles)
+    counted = (splat.splat_columns, ranges.tile_edges, expand.interleave_rows,
+               expand.emit_slots, raster.rasterize_tiles)
     before = [fn.launches for fn in counted]
     scene = pt.random_scene(500, seed=2, device=dev)
     cfg = pt.RenderConfig(screen_size=128)
     cam = pt.Camera(aspect=1.0).framed(scene.bounds_min, scene.bounds_max)
     got = pt.Renderer(scene, cfg).render(cam)
-    assert [fn.launches - b for fn, b in zip(counted, before)] == [1, 1, 1, 1]
+    assert [fn.launches - b for fn, b in zip(counted, before)] == [1, 1, 1, 1, 1]
     want = golden_render(scene_to_numpy(scene), cam.camera_data(), cfg)
     diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
     assert (diff > 8).any(axis=-1).mean() <= 0.02
@@ -719,6 +776,35 @@ def test_capture_spans_sum_to_the_capture_span(dev):
     total = sum(t1 - t0 for t0, t1 in spans)
     assert abs(total - (c1 - c0)) <= 0.01 * (c1 - c0)
     assert c1 <= host[telemetry.REPLAY][0] <= host[telemetry.READBACK][0]
+
+
+def test_replays_read_the_camera_refilled_in_place(dev):
+    """One key over an orbit: its first frame eager, its second captured,
+    then replays, each with another camera copied into the renderer's
+    static buffer.  The per-splat kernel reads the camera there, so every
+    frame equals the eager frame of its own camera, and the replays launch
+    no kernel from the host."""
+    from torch_port_cases import eager_render
+
+    import copy
+
+    scene = pt.random_scene(3000, seed=0, min_scale=0.002, max_scale=0.053, sh_degree=3,
+                            device=dev)
+    cams = pt.orbit_cameras(scene.bounds_min, scene.bounds_max, 6)
+    r = pt.Renderer(scene, pt.RenderConfig(screen_size=128))
+    r.render(cams[0])
+    key = 2 * r._key()
+    methods, launches = [], []
+    for c in cams:
+        r.capacity = key
+        twin = copy.copy(r)
+        before = splat.splat_columns.launches
+        got = r.render(c)
+        methods.append(r.last_method)
+        launches.append(splat.splat_columns.launches - before)
+        assert np.array_equal(got, eager_render(twin, c, key, None)), methods[-1]
+    assert methods == ["eager", "capture", "replay", "replay", "replay", "replay"]
+    assert launches[2:] == [0, 0, 0, 0] and launches[0] == 1
 
 
 @pytest.mark.parametrize("cfg_kw,sh", [(dict(screen_size=128), 3), (dict(screen_size=128), 0),

@@ -34,7 +34,8 @@ import cudagaussianrenderer_torch as pt
 from cudagaussianrenderer_torch.ops import binning, raster
 from cudagaussianrenderer_torch.ops.projection import project_splats
 from cudagaussianrenderer_torch.parallel import distributed as pd
-from cudagaussianrenderer_torch.render import _frame_pairs, _splat_colors, camera_tensors
+from cudagaussianrenderer_torch.ops.splat import splat_colors
+from cudagaussianrenderer_torch.render import _frame_pairs, camera_tensors
 
 import sharded_graph_checks as checks
 import torch_port_cases as cases
@@ -50,7 +51,7 @@ def band_inputs(cfg):
                          .camera_data(), "cpu")
     clip = project_splats(scene.means, scene.scales, scene.quats, cam, cfg,
                           opacities=scene.opacities)
-    return clip, _splat_colors(scene, cam), scene.opacities
+    return clip, splat_colors(scene, cam), scene.opacities
 
 
 def same(a, b):

@@ -1117,3 +1117,89 @@ def dp_graph_ranks_case(steps):
             out[name + "_methods"] = methods
             out[name + "_profiles"] = sorted(k[1][1] for k in step._visited if k[0] == "step")
     return out
+
+
+# The per-splat kernel's cases (ops.splat.splat_columns, tests/test_torch_splat.py
+# on the CPU and tests/test_torch_kernels_cuda.py on the card): splats that
+# stages A-C must carry through their edges, seen by a camera at the origin
+# looking down -z (60 degrees, near 0.1, far 100), then random splats around
+# the frustum.  Each: (what it is, centre, scales, opacity).
+EDGE_SPLATS = (
+    ("behind the camera", (0.3, -0.2, 2.0), (0.2, 0.2, 0.2), 0.8),
+    ("in the camera's plane", (0.5, 0.5, 0.0), (0.1, 0.1, 0.1), 0.8),
+    ("on the near plane", (0.0, 0.0, -0.1), (0.05, 0.05, 0.05), 0.8),
+    ("just past the near plane", (0.01, 0.01, -0.1001), (0.01, 0.01, 0.01), 0.8),
+    ("opacity 0", (0.0, 0.1, -3.0), (0.1, 0.1, 0.1), 0.0),
+    ("below the 8-bit floor", (0.1, 0.0, -3.0), (0.1, 0.1, 0.1), 0.002),
+    ("anisotropic needle", (-0.3, 0.2, -4.0), (1.2, 0.003, 0.003), 0.9),
+    ("wider than 63 tiles", (0.0, 0.0, -2.0), (3.0, 3.0, 3.0), 0.9),
+    ("taller than 8 rows", (0.4, 0.0, -5.0), (0.01, 1.5, 0.01), 0.9),
+    ("zero scale", (0.2, 0.2, -3.0), (0.0, 0.0, 0.0), 0.9),
+    ("at the far plane", (0.0, 0.0, -100.0), (1.0, 1.0, 1.0), 0.9),
+    ("on the frustum's edge", (2.3094, 0.0, -4.0), (0.05, 0.05, 0.05), 0.9),
+)
+
+# (id, RenderConfig fields, splats, SH degree, coefficients beyond (d+1)^2,
+# row band: None, ints, or "tensor" for the ints as 0-d int32 tensors).
+SPLAT_CASES = [
+    ("default-sh3", dict(screen_size=1024), 1000, 3, 0, None),
+    ("sh0-baked", dict(screen_size=1024), 777, 0, 0, None),
+    ("sh1-wide-k", dict(screen_size=512), 1000, 1, 5, None),
+    ("sh2", dict(screen_size=1024, depth_bits=32), 1000, 2, 0, None),
+    ("sh4-wide-k", dict(screen_size=1024), 1000, 4, 3, None),
+    ("extents-off", dict(screen_size=1024, opacity_aware_extents=False), 1000, 3, 0, None),
+    ("epanechnikov", dict(screen_size=1024, falloff="epanechnikov"), 1000, 3, 0, None),
+    ("epanechnikov-extents-off", dict(screen_size=512, falloff="epanechnikov",
+                                      opacity_aware_extents=False), 1000, 2, 0, None),
+    ("runs-off", dict(screen_size=1024, center_sampled_runs=False), 1000, 3, 0, None),
+    ("mip360-screen", dict(screen_size=1248, screen_height=832), 1000, 3, 0, None),
+    ("band-ints", dict(screen_size=1024), 1000, 3, 0, (20, 41)),
+    ("band-tensors", dict(screen_size=1024), 1000, 3, 0, "tensor"),
+    ("many-blocks", dict(screen_size=1024), 100_003, 3, 0, None),
+]
+
+
+def edge_splat_scene(n, sh_degree, extra_k=0, seed=0, device="cpu"):
+    """``n`` splats (EDGE_SPLATS first, then random ones in and around the
+    frustum of a default Camera) with SH coefficients of
+    (sh_degree + 1)^2 + extra_k bands (none at degree 0)."""
+    import cudagaussianrenderer_torch as pt
+
+    rng = np.random.default_rng(seed)
+    z = -rng.uniform(0.5, 30.0, n)
+    means = np.column_stack([rng.uniform(-0.75, 0.75, (n, 2)) * -z[:, None], z])
+    scales = np.exp(rng.uniform(np.log(0.002), np.log(0.3), (n, 3)))
+    quats = rng.normal(size=(n, 4))
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    opacities = rng.uniform(0.0, 1.0, n)
+    for i, (_, mean, scale, opacity) in enumerate(EDGE_SPLATS):
+        means[i], scales[i], opacities[i] = mean, scale, opacity
+    quats[[e[0] for e in EDGE_SPLATS].index("taller than 8 rows")] = (0.0, 0.0, 0.0, 1.0)
+    colors = rng.uniform(0.0, 1.0, (n, 3))
+    sh = None
+    if sh_degree > 0:
+        sh = rng.normal(0.0, 0.3, (n, (sh_degree + 1) ** 2 + extra_k, 3))
+    f = np.float32
+    return pt.scene_from_arrays(means.astype(f), scales.astype(f), quats.astype(f),
+                                opacities.astype(f), colors.astype(f),
+                                None if sh is None else sh.astype(f), sh_degree, device=device)
+
+
+def splat_case(case, device="cpu"):
+    """(scene, camera tensors, config, row band) of one SPLAT_CASES entry."""
+    import cudagaussianrenderer_torch as pt
+    from cudagaussianrenderer_torch.render import camera_tensors
+
+    _, cfg_kw, n, degree, extra_k, band = case
+    config = pt.RenderConfig(**cfg_kw)
+    scene = edge_splat_scene(n, degree, extra_k, device=device)
+    cam = camera_tensors(pt.Camera(aspect=config.aspect).camera_data(), device)
+    if band == "tensor":
+        band = tuple(torch.tensor(b, dtype=torch.int32, device=device) for b in (7, 30))
+    return scene, cam, config, band
+
+
+def column_bits(t):
+    """A float column's bit patterns with every NaN as one pattern."""
+    t = torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t)
+    return t.contiguous().view(torch.int32)
