@@ -12,8 +12,11 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
   2. kernel parity at the main path's shapes: the per-splat kernel of
      stages A-C (ops.splat.splat_columns) at the benchmark's mip360 shape
      (2.96 M splats, SH 3, 1248x832) against its plain version (columns
-     exact, rgb within a level), with its times and byte bound; each of
-     K1-K4 against its plain PyTorch version on the same inputs (K1-K3
+     exact, rgb within a level), with its times and byte bound; stage D
+     (ops.sorting.sort_words, csrc/sort.cu) at that shape against the
+     stable int64 torch.sort (bit for bit), with its parts' times and
+     bounds and the int64 and sign-flipped int32 torch.sort beside it; each
+     of K1-K4 against its plain PyTorch version on the same inputs (K1-K3
      exact, K4 within K4_LSB_BOUND output levels), with per-kernel times;
      K3 and K4 also on the huge-splat 1024x1024 scene, parity and time;
      K4 at the tiles
@@ -34,7 +37,7 @@ It builds the CUDA kernels from csrc/ (nvcc, at first use), then:
      1024x1024 over 8 orbit cameras, ORBIT_PASSES passes through
      Renderer.render (a key's first frame eager, its second captured as a
      CUDA graph, later ones replayed), with the launch counts of the
-     per-splat kernel and K1-K4 over those passes; then a traced pass of
+     per-splat kernel, stage D and K1-K4 over those passes; then a traced pass of
      replays, in which each of those kernels must appear once a frame;
      every frame, the traced ones too, byte-equal to render_frame at its
      key, the renderer's state to the eager controller's, and that eager
@@ -208,6 +211,16 @@ SPLAT_KERNEL_SCREEN = (1248, 832)
 # packed rotation, the opacity and 16 coefficients a channel in (224 B), 12
 # f32 columns and a count out (52 B).
 SPLAT_BYTES = 224 + 52
+# Stage D's parts (csrc/sort.cu) in a trace, each with the bytes it moves a
+# slot: the slot index and the record written, 3 attribute words read (32
+# B); cub's 4 radix passes, each reading and writing a 4-B key and a 4-B
+# slot index (64 B), and its memsets; the sorted index and a 16-B record
+# read, 3 words written (32 B).
+SORT_PARTS = {
+    "records": (r"gsr_sort_slots_index_elementwise_kernel", 32),
+    "radix sort": (r"DeviceRadixSort|^Memset", 64),
+    "gather": (r"gsr_sort_index_elementwise_kernel", 32),
+}
 # Phase 2's frames of the main path's scene and cameras through
 # Renderer.render at these tile edges (1024x1024).
 TILE_FRAME_EDGES = (16, 32, 64)
@@ -321,6 +334,12 @@ def trace_ms(fn, reps):
     has run) and single records that are too short, so the time is each
     kernel's median record times its launches a call, not the records' sum
     over ``reps``.  None when the trace holds no device time."""
+    busy = sum(trace_kernels(fn, reps).values())
+    return busy if busy > 0 else None
+
+
+def trace_kernels(fn, reps):
+    """trace_ms by kernel: {record name: device ms a call}."""
     import statistics
 
     import torch
@@ -338,13 +357,13 @@ def trace_ms(fn, reps):
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key:
             records.setdefault(e.key, []).append(e.self_device_time_total)
-    us = 0.0
+    out = {}
     for key, times in records.items():
         per_call = max(1, round(len(times) / reps))
         if len(times) != reps * per_call:
             log(f"    (the trace holds {len(times)} records of {key[:48]} for {reps} calls)")
-        us += statistics.median(times) * per_call
-    return us / 1e3 if us > 0 else None
+        out[key] = statistics.median(times) * per_call / 1e3
+    return out
 
 
 def device_ms(fn, reps):
@@ -410,22 +429,12 @@ def k4_registers(kernels, tile_size, geometry):
     return None
 
 
-def splat_kernel(dev):
-    """Phase 2's per-splat kernel (ops.splat.splat_columns, csrc/splat.cu)
-    at the mip360 cell's shape (SPLAT_KERNEL_SPLATS, SPLAT_KERNEL_SCREEN)
-    from camera 0 of an orbit: against its plain version on the card (the
-    counts and every column but rgb bit for bit, rgb within one level a
-    channel), its time between events and its device time, the plain
-    version's time, and its byte bound (SPLAT_BYTES a splat).  Returns the
-    kernels line's record."""
-    import torch
-
+def mip360_shape(dev):
+    """The mip360 cell's shape (SPLAT_KERNEL_SPLATS, SH 3,
+    SPLAT_KERNEL_SCREEN) from camera 0 of an orbit: (scene, camera tensors,
+    config)."""
     from cudagaussianrenderer_torch import RenderConfig, orbit_cameras, random_scene
-    from cudagaussianrenderer_torch.ops import splat
     from cudagaussianrenderer_torch.render import camera_tensors
-
-    def bits(t):
-        return torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t).view(torch.int32)
 
     width, height = SPLAT_KERNEL_SCREEN
     config = RenderConfig(screen_size=width, screen_height=height)
@@ -433,6 +442,24 @@ def splat_kernel(dev):
                          extent=4.0, sh_degree=3, device=dev)
     cam = camera_tensors(orbit_cameras(scene.bounds_min, scene.bounds_max, 8,
                                        aspect=config.aspect)[0].camera_data(), dev)
+    return scene, cam, config
+
+
+def splat_kernel(scene, cam, config):
+    """Phase 2's per-splat kernel (ops.splat.splat_columns, csrc/splat.cu)
+    at the mip360 cell's shape (mip360_shape): against its plain version on
+    the card (the counts and every column but rgb bit for bit, rgb within
+    one level a channel), its time between events and its device time, the
+    plain version's time, and its byte bound (SPLAT_BYTES a splat).
+    Returns the kernels line's record."""
+    import torch
+
+    from cudagaussianrenderer_torch.ops import splat
+
+    def bits(t):
+        return torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t).view(torch.int32)
+
+    width, height = config.screen_w, config.screen_h
     cols, counts = splat.splat_columns(scene, cam, config)
     want_cols, want_counts = splat._splat_columns_torch(scene, cam, config, None)
     torch.cuda.synchronize()
@@ -464,6 +491,101 @@ def splat_kernel(dev):
     log(f"  per-splat kernel: byte bound {bound:.4f} ms, device {record['device_ms']} ms = "
         f"{100 * bound / (record['device_ms'] or record['ms']):.1f}% of it; between events "
         f"{record['ms']:.4f} ms; plain version {record['plain_ms']:.3f} ms")
+    return record
+
+
+def sort_kernel(scene, cam, config, build_seconds):
+    """Phase 2's stage D (ops.sorting.sort_pairs' kernel path, sort_words,
+    csrc/sort.cu) on the pair list of the mip360 cell's shape
+    (mip360_shape) at the capacity Renderer would give it: keys, values and
+    attribute words bit-equal to the stable int64 torch.sort and its
+    gathers (the parent's path); its device time, and that of each of its
+    parts against its bound (SORT_PARTS: the slot indices and records, the
+    radix sort, the gather), its time between events, and the library
+    yardsticks: the int64 torch.sort with its three gathers, and torch.sort
+    of the sign-flipped int32 key (ordered as the uint32 key, the other way
+    to sort at the key's width) with the same three gathers.  Returns the
+    kernels line's record."""
+    import re
+
+    import torch
+
+    from cudagaussianrenderer_torch import Renderer
+    from cudagaussianrenderer_torch.ops import sorting, splat
+    from cudagaussianrenderer_torch.ops.binning import build_tile_pairs_from_columns
+    from cudagaussianrenderer_torch.render import round_capacity
+
+    cols, counts = splat.splat_columns(scene, cam, config)
+    total = int(counts.sum())
+    capacity = round_capacity(Renderer._bucket(total), scene.means.device)
+    pairs = build_tile_pairs_from_columns(cols, counts, capacity, config)
+    del cols, counts
+    key, attrs = pairs.keys[0], pairs.attrs
+    sign = torch.iinfo(torch.int32).min
+
+    def words(result):
+        keys, values, attrs_ = result
+        return list(keys) + ([] if values is None else [values]) + list(attrs_)
+
+    def flipped_sort():
+        return torch.sort(key ^ sign, stable=True)
+
+    def flipped():
+        sorted_key, perm = flipped_sort()
+        return sorted_key ^ sign, [a[perm] for a in attrs]
+
+    equal = all(
+        bits_equal(g, w)
+        for v in (False, True)
+        for g, w in zip(words(sorting.sort_pairs(pairs, with_values=v)),
+                        words(sorting._sort_pairs_torch(pairs, with_values=v, stable=True))))
+    want = sorting._sort_pairs_torch(pairs, stable=True)
+    fk, fw = flipped()
+    equal_flipped = bits_equal(fk, want[0][0]) and all(
+        bits_equal(fw[i], want[2][i]) for i in range(3))
+    del want, fk, fw
+    log(f"  sort at {total} candidates, capacity {capacity}: kernel path bit-equal to the "
+        f"stable int64 torch.sort={equal}; the flipped int32 torch.sort={equal_flipped}")
+    require(equal and equal_flipped, "stage D's kernel path differs from the int64 torch.sort")
+
+    peaks = {}
+    for name, fn in (("kernel", lambda: sorting.sort_pairs(pairs)),
+                     ("int64", lambda: sorting._sort_pairs_torch(pairs)), ("flipped", flipped)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+    kernels = trace_kernels(lambda: sorting.sort_pairs(pairs), 20) or {}
+    parts = {name: sum(ms for k, ms in kernels.items() if re.search(pattern, k))
+             for name, (pattern, _) in SORT_PARTS.items()}
+    bounds = {name: b * capacity / HBM_BYTES_PER_S * 1e3 for name, (_, b) in SORT_PARTS.items()}
+    record = dict(
+        ms=cuda_ms(lambda: sorting.sort_pairs(pairs), 20),
+        device_ms=sum(kernels.values()) or None,
+        plain_ms=None,
+        library_ms=cuda_ms(lambda: sorting._sort_pairs_torch(pairs), 20),
+        library_device_ms=trace_ms(lambda: sorting._sort_pairs_torch(pairs), 20),
+        flipped_ms=cuda_ms(flipped, 20),
+        flipped_device_ms=trace_ms(flipped, 20),
+        flipped_sort_device_ms=trace_ms(flipped_sort, 20),
+        part_device_ms=parts,
+        part_bound_ms=bounds,
+        bytes=sum(b for _, b in SORT_PARTS.values()) * capacity,
+        slots=capacity, candidates=total, peak_bytes=peaks,
+        build_s=build_seconds,
+        max_abs_err=0,
+    )
+    log(f"  stage D at {capacity} slots: device {record['device_ms']} ms by part "
+        + ", ".join(f"{k} {parts[k]:.4f} (bound {bounds[k]:.4f})" for k in SORT_PARTS)
+        + f"; between events {record['ms']:.4f}; int64 torch.sort and gathers "
+        f"{record['library_device_ms']} device, {record['library_ms']:.4f} between events; "
+        f"flipped int32 torch.sort {record['flipped_sort_device_ms']} device, with the gathers "
+        f"{record['flipped_device_ms']}, {record['flipped_ms']:.4f} between events; peak bytes "
+        f"{peaks}; build {build_seconds:.1f} s")
+    log(f"  stage D's kernels, ms a call: "
+        + ", ".join(f"{k[:72]} {ms:.4f}" for k, ms in kernels.items()))
     return record
 
 
@@ -772,6 +894,7 @@ def sync(dev):
 # in an anonymous namespace of its csrc/ file).
 TRACE_NAMES = {
     "splat_columns": r"::splat_columns_kernel<",
+    "sort_words": r"DeviceRadixSortHistogramKernel",
     "tile_edges": r"::edges_kernel<",
     "interleave_rows": r"::interleave_kernel\(",
     "emit_slots": r"::emit_kernel<false>",
@@ -2266,7 +2389,7 @@ def main() -> int:
 
     from cudagaussianrenderer_torch import RenderConfig, Renderer, orbit_cameras, random_scene
     from cudagaussianrenderer_torch.models.camera import Camera
-    from cudagaussianrenderer_torch.ops import banded, expand, ranges, raster, splat
+    from cudagaussianrenderer_torch.ops import banded, expand, ranges, raster, sorting, splat
     from cudagaussianrenderer_torch.ops.binning import (
         TilePairs, emit_columns, splat_row_packs, splat_tile_rects,
     )
@@ -2324,7 +2447,10 @@ def main() -> int:
     capacity = round_capacity(Renderer._bucket(total), dev)
     n = incl.shape[0]
     log(f"camera 0: {total} candidate pairs, capacity {capacity}")
-    kernels = {"splat": splat_kernel(dev)}
+    mip360 = mip360_shape(dev)
+    kernels = {"splat": splat_kernel(*mip360),
+               "sort": sort_kernel(*mip360, builds["sort"]["seconds"])}
+    del mip360
 
     # K2
     rows = expand.interleave_rows(incl, cols, capacity + 1)
@@ -2505,8 +2631,8 @@ def main() -> int:
 
     # ---- 4. main path at full width ---------------------------------------
     log("== 4. main path: Renderer, 1M splats SH-3, 1024x1024, 8 orbit cameras")
-    counted = (splat.splat_columns, ranges.tile_edges, expand.interleave_rows,
-               expand.emit_slots, raster.rasterize_tiles)
+    counted = (splat.splat_columns, sorting.sort_words, ranges.tile_edges, expand.interleave_rows, expand.emit_slots,
+               raster.rasterize_tiles)
     renderer.render(cams[0])  # warm-up: sizes the capacity from its candidates
     torch.cuda.synchronize()
     recs, launches, trace, flat_numbers = graphed_orbit("flat", renderer, cams, counted)
@@ -2884,6 +3010,8 @@ def main() -> int:
         "splat": ("splat", "splat_columns", (launches, trace),
                   "none: stages A-C are plain jnp there (ops/sh.py, ops/projection.py, "
                   "ops/binning.py)"),
+        "sort": ("sort", "sort_words", (launches, trace),
+                 "none: stage D is lax.sort there (ops/sorting.py)"),
         "edges": ("edges", "tile_edges", (launches, trace), P + "ranges.py:40"),
         "interleave": ("interleave", "interleave_rows", (launches, trace), P + "expand.py:107"),
         "emit": ("emit", "emit_slots", (launches, trace), P + "expand.py:206"),
@@ -2916,8 +3044,12 @@ def main() -> int:
             bound_by="operations" if ops_ms > bytes_ms else "bytes",
             library_ms=k["library_ms"],
         ))
+    # Stage D: its parts, the yardsticks, the build.
+    line[1].update({k: v for k, v in kernels["sort"].items()
+                    if k.startswith(("part_", "library_device", "flipped"))
+                    or k in ("slots", "candidates", "peak_bytes", "build_s")})
     # K1 also runs once per banded frame, in its segmented mode.
-    line[1].update(banded_launches=blaunches["tile_edges"],
+    line[2].update(banded_launches=blaunches["tile_edges"],
                    banded_replayed_launches=btrace["tile_edges"], **k1b)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"multi_device": multi}), flush=True)

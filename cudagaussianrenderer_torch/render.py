@@ -6,7 +6,7 @@ inside the frame:
   A  ops.sh.evaluate_sh_colors          (torch)
   B  ops.projection.project_splats      (torch)
   C  ops.binning.build_tile_pairs       (torch, then kernels K2 + K3)
-  D  ops.sorting.sort_pairs             (torch.sort)
+  D  ops.sorting.sort_pairs             (kernel sort.cu; torch.sort off the card)
   E  ops.ranges.tile_ranges             (kernel K1)
   F  ops.raster.rasterize_tiles         (kernel K4), then tiles_to_image
 
@@ -59,7 +59,7 @@ from .ops.expand import PREP_BLK as _PREP_BLK
 from .ops.projection import project_splats
 from .ops.ranges import tile_ranges
 from .ops.raster import pack_pair_data, rasterize_tiles, tiles_to_image
-from .ops.sorting import sort_pairs
+from .ops.sorting import sort_pairs, sort_words
 from .ops.splat import splat_colors, splat_columns
 from .utils.device import resolve_device
 
@@ -623,6 +623,9 @@ class Renderer:
         self._pool = None
         # How the last frame ran: "eager", "capture" or "replay".
         self.last_method: Optional[str] = None
+        # key -> the stage-D path (ops.sorting.SORT_PATHS) its last eager or
+        # captured frame ran: the one the key's graph holds.
+        self._sort_paths: Dict[object, str] = {}
         # The frame records, and the stamp ring the frame writes.
         self._record = telemetry.FrameRecorder(self.device, self._inputs[CAMERA_FLOATS:])
 
@@ -714,7 +717,7 @@ class Renderer:
                 self._update_flat(int(counts[0]))
         image = image.cpu().numpy()
         rec.end(telemetry.READBACK)
-        rec.end_frame(self.last_method, key, counters)
+        rec.end_frame(self.last_method, key, counters, self._sort_paths.get(key))
         return image
 
     def _follow_scene(self) -> None:
@@ -737,11 +740,13 @@ class Renderer:
         banded frame band_totals and band_splats after it, then K4's
         pairs blended and the pairs listed)."""
         capacity, compact_capacity = key if self.banded else (key, 0)
+        sorts = sort_words.launches
         image, aux = render_frame_tensors(
             self.scene, self._camera_views, self.config, capacity,
             band_rows=self._band_rows, compact_capacity=compact_capacity,
             stamp=self._record.stamp,
         )
+        self._sort_paths[key] = "kernel" if sort_words.launches > sorts else "torch"
         counts = [aux["num_candidates"].reshape(1)]
         if self.banded:
             counts += [aux["band_totals"], aux["band_splats"]]

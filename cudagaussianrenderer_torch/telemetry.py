@@ -55,6 +55,11 @@ capacity kept) and pairs blended (K4's counter: the pairs each tile
 blended before its exit), read back with the frame's counts; -1 where the
 call read no counts (``check_saturation=False``).
 
+The stage-D path (``sort_path``, an index into ops.sorting.SORT_PATHS):
+``kernel`` where the frame sorted through csrc/sort.cu, ``torch`` where it
+sorted with torch.sort.  An eager frame and a capture note the path they
+ran; a replay notes the path its graph holds, the one its capture ran.
+
 No profiler annotation is made: a trace shows the stamps as
 ``frame_stamp_kernel`` records, and nothing else of the records.
 """
@@ -69,6 +74,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .ops.sorting import SORT_PATHS
 from .utils import cuda_build as cb
 
 SPANS = ("frame", "inputs", "eager", "capture", "replay", "readback", "capture.warmup",
@@ -92,6 +98,7 @@ RECORD = np.dtype([
     ("renderer", np.int64), ("seq", np.int64), ("key", np.int64, (2,)), ("method", np.int64),
     ("ring", np.int64), ("host", np.int64, (len(SPANS), 2)),
     ("counters", np.int64, (len(COUNTERS),)), ("device", np.int64, (STAMPS,)),
+    ("sort_path", np.int64),
 ])
 # A record as int64 words, and where each field starts among them.
 WORDS = RECORD.itemsize // 8
@@ -237,13 +244,14 @@ class FrameRecorder:
         self.words[_HOST + 2 * ended + 1] = t
         self.words[_HOST + 2 * begun] = t
 
-    def end_frame(self, method: str, key, counters=None) -> None:
+    def end_frame(self, method: str, key, counters=None, sort_path=None) -> None:
         """End the frame span and commit, with ``key`` (an int or a pair of
-        ints) and ``counters`` (COUNTERS, or None where the frame read
-        none)."""
+        ints), ``counters`` (COUNTERS, or None where the frame read none)
+        and ``sort_path`` (a name of SORT_PATHS, or None where unknown)."""
         w = self.words
         w[_HOST + 2 * FRAME + 1] = _perf_ns()
         w[_AT["method"]] = _METHOD[method]
+        w[_AT["sort_path"]] = -1 if sort_path is None else SORT_PATHS.index(sort_path)
         w[_AT["ring"]] = self.ring.count
         if isinstance(key, tuple):
             w[_AT["key"]], w[_AT["key"] + 1] = key
@@ -319,7 +327,8 @@ def device_span_ns(records: np.ndarray) -> np.ndarray:
 
 def summary(rec: np.void) -> Dict:
     """One record as plain numbers: method, key, host ms of each span it
-    has, device ms of each stage and of the frame, and its counters."""
+    has, device ms of each stage and of the frame, its counters and its
+    stage-D path."""
     one = np.asarray([rec], RECORD)
     host = {name: float(ns) / 1e6 for name in SPANS if (ns := span_ns(one, name)[0]) >= 0}
     stamped = bool(one["device"][0, 0] >= 0)
@@ -332,4 +341,5 @@ def summary(rec: np.void) -> Dict:
                      if stamped else {}),
         "device_ms": float(span) / 1e6 if span >= 0 else None,
         **{name: int(v) for name, v in zip(COUNTERS, rec["counters"])},
+        "sort_path": SORT_PATHS[rec["sort_path"]] if rec["sort_path"] >= 0 else None,
     }

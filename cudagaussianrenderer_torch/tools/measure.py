@@ -6,7 +6,7 @@ one stage, or one piece of a stage, timed alone on one device.
 
 Subcommands (the JAX tool's eleven):
 
-  sort        the flat sort of one int64 key and 0-3 payload gathers
+  sort        the flat sort of the packed key with 0-3 payload words
               (ops.sorting.sort_pairs), and the batched [g, C/g] form of
               the banded path (ops.banded.sort_pairs_banded)
   gather      the (key, index) sort alone, a 3-row gather by a random
@@ -316,8 +316,10 @@ def _pairs(key: torch.Tensor, payloads) -> TilePairs:
 
 
 def sort_flat(key: torch.Tensor, payloads):
-    """The frame's sort stage: one torch.sort of the key as int64, then a
-    gather of each payload word by its permutation (sort_pairs)."""
+    """The frame's sort stage (sort_pairs): on the card the key sorted as
+    uint32 with int32 slot payloads, the payload words gathered by the
+    sorted slots (csrc/sort.cu); on the CPU one torch.sort of the key as
+    int64, then a gather of each payload word by its permutation."""
     keys, _, attrs = sort_pairs(_pairs(key, payloads))
     return keys[0], attrs
 

@@ -33,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
-SOURCES = ("edges", "interleave", "emit", "raster", "stack", "compact", "stamp", "splat")
+SOURCES = ("edges", "interleave", "emit", "raster", "stack", "compact", "stamp", "splat", "sort")
 BASE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -15,9 +15,9 @@ import torch
 import cudagaussianrenderer_torch as pt
 from cudagaussianrenderer_torch import telemetry
 from cudagaussianrenderer_torch.golden import golden_render, scene_to_numpy
-from cudagaussianrenderer_torch.ops import banded, expand, ranges, raster, splat
+from cudagaussianrenderer_torch.ops import banded, expand, ranges, raster, sorting, splat
 from cudagaussianrenderer_torch.ops.binning import (
-    emit_columns, pack_columns, splat_row_packs, splat_tile_rects,
+    TilePairs, emit_columns, pack_columns, splat_row_packs, splat_tile_rects,
 )
 from cudagaussianrenderer_torch.ops.projection import project_splats
 from cudagaussianrenderer_torch.ops.splat import splat_colors
@@ -1279,6 +1279,158 @@ def test_measure_emit_on_card_launches_k2_and_k3(dev, capsys):
     trace = next(ln for ln in res["lines"] if ln["name"].startswith("emit kernels"))["trace"]
     for pattern in (r"::interleave_kernel\(", r"::emit_kernel<false>"):
         assert any(re.search(pattern, k) for k in trace), sorted(trace)
+
+
+# Stage D's kernel path (csrc/sort.cu) against the stable int64 torch.sort
+# and its gathers (sorting._sort_pairs_torch): (name, slots, live slots,
+# tiles, depths).  Depths from a small range make runs of equal keys, whose
+# order only a stable sort keeps; tiles past 4,095 set the key's top bit, so
+# a signed sort would misorder them.
+SORT_CASES = [
+    ("sentinel-suffix", 70_000, 52_345, 4096, 64),
+    ("all-equal", 5_000, 5_000, 1, 1),
+    ("8160-tiles", 300_000, 281_003, 8160, 1 << 19),
+    ("block-ragged", 1_025, 1_000, 40, 8),
+    ("one-slot", 1, 1, 1, 1),
+]
+
+
+def sort_case_pairs(dev, n, live, tiles, depths, seed=0):
+    """A TilePairs of ``n`` slots: ``live`` packed keys (tile << 19 |
+    depth), then sentinels; random attribute words and splat indices, as
+    rows of one [6, n] tensor, as the emit kernel leaves them."""
+    rng = np.random.default_rng(seed)
+    keys = np.full(n, 0xFFFFFFFF, np.uint64)
+    keys[:live] = (rng.integers(0, tiles, live).astype(np.uint64) << np.uint64(19)) | (
+        rng.integers(0, depths, live).astype(np.uint64) + np.uint64((1 << 19) - depths))
+    rows = rng.integers(-2**31, 2**31, (6, n), dtype=np.int64).astype(np.int32)
+    rows[0] = keys.astype(np.uint32).view(np.int32)
+    rows = torch.from_numpy(rows).to(dev)
+    return TilePairs(keys=(rows[0],), values=rows[2], attrs=(rows[3], rows[4], rows[5]),
+                     num_candidates=torch.tensor(live, device=dev),
+                     num_pairs=torch.tensor(live, device=dev))
+
+
+def sorted_words(result):
+    keys, values, attrs = result
+    return list(keys) + ([] if values is None else [values]) + list(attrs)
+
+
+@pytest.mark.parametrize("with_values", [False, True], ids=["attrs", "with-values"])
+@pytest.mark.parametrize("name,n,live,tiles,depths", SORT_CASES, ids=[c[0] for c in SORT_CASES])
+def test_sort_kernel_matches_the_stable_int64_sort(dev, name, n, live, tiles, depths,
+                                                   with_values):
+    """Keys, values and attribute words bit-equal to torch.sort of the key
+    widened to int64 (stable) and the torch gathers; one sort and one
+    gather launch, for stable and unstable calls alike."""
+    pairs = sort_case_pairs(dev, n, live, tiles, depths)
+    want = sorting._sort_pairs_torch(pairs, with_values=with_values, stable=True)
+    for stable in (False, True):
+        before = sorting.sort_words.launches
+        got = sorting.sort_pairs(pairs, with_values=with_values, stable=stable)
+        assert sorting.sort_words.launches == before + 1
+        assert (got[1] is None) == (not with_values)
+        for g, w in zip(sorted_words(got), sorted_words(want)):
+            assert g.dtype == torch.int32 and torch.equal(g, w)
+
+
+def test_sort_kernel_replayed_equals_eager(dev):
+    """A sort captured in a CUDA graph and replayed over keys refilled in
+    place equals its eager twin on the same keys."""
+    from cudagaussianrenderer_torch.render import capture_frame
+
+    pairs = sort_case_pairs(dev, 70_000, 52_345, 4096, 64)
+
+    def frame():
+        return sorting.sort_pairs(pairs, with_values=True)
+
+    graph, out = capture_frame(frame, dev)
+    for seed in (1, 2):
+        fresh = sort_case_pairs(dev, 70_000, 60_000, 8160, 1 << 19, seed=seed)
+        pairs.keys[0].copy_(fresh.keys[0])
+        before = sorting.sort_words.launches
+        graph.replay()
+        assert sorting.sort_words.launches == before
+        want = frame()
+        for g, w in zip(sorted_words(out), sorted_words(want)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("words", [0, 1, 2, 4])
+def test_sort_words_moves_any_word_count(dev, words):
+    """0-4 words (the measurement harness sorts 0-3 payloads, a fit 4),
+    bit-equal to the plain version on the card."""
+    pairs = sort_case_pairs(dev, 70_000, 52_345, 4096, 64)
+    sources = ([pairs.values] + list(pairs.attrs))[:words]
+    got = sorting.sort_words(pairs.keys[0], sources)
+    want = sorting._sort_words_torch(pairs.keys[0], sources)
+    assert got[1].shape == (words, 70_000)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_sort_words_rejects_bad_arguments(dev):
+    key = torch.zeros(64, dtype=torch.int32, device=dev)
+    words = [torch.zeros(64, dtype=torch.int32, device=dev) for _ in range(5)]
+    bad = [
+        (key.long(), words[:3]), (key.view(8, 8), words[:3]), (key[::2], words[:3]),
+        (key, [w.cpu() for w in words[:3]]), (key, [words[0][:32]] + words[1:3]),
+        (key, [w.float() for w in words[:3]]), (key, [w.view(8, 8) for w in words[:3]]),
+        (key, words),
+    ]
+    for bad_key, bad_words in bad:
+        with pytest.raises(ValueError):
+            sorting.sort_words(bad_key, bad_words)
+
+
+def test_renderer_records_the_sort_path_its_frames_take(dev):
+    """Every frame of a flat Renderer with the packed key sorts through the
+    kernel: eager, capture and replays note it in their records, and the
+    wrapper counts the eager frame, the capture's warm-up and the capture.
+    The lex key and the banded list keep torch.sort, and say so."""
+    before = sorting.sort_words.launches
+    _, recs, _ = recorded_frames(dev)
+    assert [telemetry.SORT_PATHS[p] for p in recs["sort_path"]] == ["kernel"] * 5
+    assert sorting.sort_words.launches - before == 4  # the settling frame too
+    scene = pt.random_scene(3000, seed=0, min_scale=0.002, max_scale=0.053, device=dev)
+    cam = pt.orbit_cameras(scene.bounds_min, scene.bounds_max, 1)[0]
+    for cfg in (pt.RenderConfig(screen_size=128, depth_bits=32),
+                pt.RenderConfig(screen_size=128, sort_bands=2)):
+        r = pt.Renderer(scene, cfg)
+        before = sorting.sort_words.launches
+        methods = []
+        for _ in range(6):
+            r.render(cam)
+            methods.append(r.last_method)
+            assert r.last_record()["sort_path"] == "torch"
+        assert sorting.sort_words.launches == before
+        assert "replay" in methods or cfg.sort_bands > 1, methods
+
+
+@pytest.mark.parametrize("cfg_kw", [dict(screen_size=256), dict(screen_size=1920,
+                                                                screen_height=1088)],
+                         ids=["256", "8160-tiles"])
+def test_frames_through_the_sort_kernel_equal_the_int64_sort_frames(dev, cfg_kw, monkeypatch):
+    """Renderer frames (the kernel's sort, replayed) byte-equal to frames
+    made with the stable int64 torch.sort in stage D, at the same poses."""
+    from cudagaussianrenderer_torch import render as prender
+
+    scene = pt.random_scene(20_000, seed=3, min_scale=0.002, max_scale=0.053, sh_degree=3,
+                            device=dev)
+    cfg = pt.RenderConfig(**cfg_kw)
+    cams = pt.orbit_cameras(scene.bounds_min, scene.bounds_max, 3, aspect=cfg.aspect)
+    r = pt.Renderer(scene, cfg)
+    for c in cams:
+        r.render(c)
+    got = []
+    for c in cams * 2:
+        got.append((r.render(c), r.last_record()))
+    assert [rec["sort_path"] for _, rec in got] == ["kernel"] * len(got)
+    assert got[-1][1]["method"] == "replay"
+    monkeypatch.setattr(prender, "sort_pairs",
+                        lambda pairs, stable=False: sorting._sort_pairs_torch(pairs, stable=True))
+    for c, (img, rec) in zip(cams * 2, got):
+        want, _ = pt.render_frame(r.scene, c.camera_data(), cfg, rec["key"][0])
+        assert np.array_equal(img, want.cpu().numpy())
 
 
 def test_failed_capture_raises(dev):

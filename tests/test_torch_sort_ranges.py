@@ -163,3 +163,55 @@ def test_tile_ranges_truncated_list_exact():
     gs, gc = pr.tile_ranges(tuple(T(k) for k in wk), pc)
     np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
     np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
+
+
+# ---------------------------------------------------------------------------
+# Stage D's two paths: the rule that picks one, and the gather's plain twin
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("device_type,key_words,path", [
+    ("cuda", 1, "kernel"),
+    ("cuda", 2, "torch"),
+    ("cpu", 1, "torch"),
+    ("cpu", 2, "torch"),
+])
+def test_sort_path_rule(device_type, key_words, path):
+    """The packed key on the card sorts through the kernel; the two-word
+    (lex) key keeps the int64 torch.sort whatever the device, and so does
+    every CPU tensor."""
+    assert ps.sort_path(device_type, key_words) == path
+
+
+def test_sort_pairs_on_the_cpu_takes_the_torch_path(pair_lists):
+    jc, pc, want, port = pair_lists
+    before = ps.sort_words.launches
+    got = ps.sort_pairs(port, with_values=True)
+    assert ps.sort_words.launches == before
+    ref = ps._sort_pairs_torch(port, with_values=True)
+    for g, w in zip(got[0] + (got[1],) + got[2], ref[0] + (ref[1],) + ref[2]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("words", [0, 1, 3, 4])
+def test_sort_words_plain_matches_a_stable_argsort_and_indexing(words):
+    """sort_words' plain version: the keys in unsigned order, equal keys in
+    slot order, and row w of the words words[w] at the same order, for
+    sources longer than the keys (a view of the emit rows)."""
+    rng = np.random.default_rng(words)
+    n, src_len = 1000, 1300
+    keys = np.concatenate([rng.integers(0, 1 << 32, n - 100, dtype=np.uint64).astype(np.uint32),
+                           np.full(100, 0xFFFFFFFF, np.uint32)])
+    keys[:300] = keys[300:600]  # runs of equal keys
+    src = [torch.from_numpy(rng.integers(-2**31, 2**31, src_len, dtype=np.int64).astype(np.int32))
+           for _ in range(words)]
+    order = np.argsort(keys, kind="stable")
+    got_keys, got = ps.sort_words(T(keys), src)
+    assert got.dtype == torch.int32 and got.shape == (words, n)
+    np.testing.assert_array_equal(U32(got_keys), keys[order])
+    for w in range(words):
+        np.testing.assert_array_equal(got[w].numpy(), src[w].numpy()[order])
+
+
+def test_sort_words_refuses_more_than_four_words():
+    with pytest.raises(ValueError):
+        ps.sort_words(torch.zeros(8, dtype=torch.int32), [torch.zeros(8, dtype=torch.int32)] * 5)

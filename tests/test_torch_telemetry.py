@@ -179,3 +179,15 @@ def test_raster_counter_equals_the_stats_count(name, cfg_kw, want, listed):
     raster.rasterize_tiles(raster.pack_pair_data(attrs, cfg.raster_chunk), starts, counts, cfg,
                            blended=blended)
     assert int(blended) == want
+
+
+@pytest.mark.parametrize("cfg_kw", [{}, dict(sort_bands=2), dict(depth_bits=32)],
+                         ids=["flat", "banded", "lex-keys"])
+def test_record_notes_the_torch_sort_path_on_the_cpu(store, cfg_kw):
+    """A CPU frame sorts with torch.sort whatever its key or bands, and its
+    record says so; the card's kernel path is held by
+    tests/test_torch_kernels_cuda.py."""
+    r, cam = tiny_renderer(**cfg_kw)
+    r.render(cam)
+    assert telemetry.SORT_PATHS[telemetry.frames()["sort_path"][-1]] == "torch"
+    assert r.last_record()["sort_path"] == "torch"
